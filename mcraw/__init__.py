@@ -1,8 +1,8 @@
-"""mcraw: a TPU-native framework for decoding MotionCam Pro .mcraw video.
+"""mcraw: a JAX framework for decoding MotionCam Pro .mcraw video.
 
-A from-scratch JAX/XLA/Pallas rebuild of the capabilities of the C++
+A from-scratch JAX/XLA rebuild of the capabilities of the C++
 motioncam-decoder reference (see SURVEY.md). Public surface mirrors the
-reference Decoder API (Decoder.hpp:47-92) plus TPU-first batched decode.
+reference Decoder API (Decoder.hpp:47-92) plus batched device decode.
 """
 
 from .errors import (  # noqa: F401

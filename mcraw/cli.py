@@ -6,8 +6,9 @@ count, writes ``audio.wav``, then ``frame_%06d.dng`` for the first N frames
 — byte-identical output to the C++ example on the same container.
 
 Extras beyond the reference: --output-dir, --resume (skip existing DNGs),
---batch (TPU batched decode), `info`, `verify` (integrity report with
-per-frame error isolation), and `encode` (synthetic clips).
+--batch (batched device decode), --pipeline (overlapped export), `info`,
+`verify` (integrity report with per-frame error isolation), `preview`, and
+`encode` (synthetic clips).
 """
 
 from __future__ import annotations
@@ -40,11 +41,11 @@ def _cmd_decode(args: argparse.Namespace) -> int:
 
 def _decode_body(args: argparse.Namespace) -> int:
     try:
-        d = Decoder(
-            args.input,
-            backend=args.backend,
-            kernel=getattr(args, "kernel", "auto"),
-        )
+        d = Decoder(args.input, backend=args.backend)
+        if d.backend == "jax":
+            from .device import enable_compile_cache
+
+            enable_compile_cache()
         frames = d.frames
         container_metadata = d.container_metadata
 
@@ -97,7 +98,7 @@ def _decode_body(args: argparse.Namespace) -> int:
             args.batch = False
 
         if args.batch and end_frame > 0:
-            # Chunked launches bound HBM/host memory on long clips.
+            # Chunked launches bound device/host memory on long clips.
             i = 0
             for imgs, metas in d.decode_batch_iter(
                 frames[:end_frame], chunk_frames=args.batch_frames
@@ -274,8 +275,10 @@ def _cmd_verify(args: argparse.Namespace) -> int:
 
 def _cmd_preview(args: argparse.Namespace) -> int:
     """Develop frames to viewable sRGB images (binary PPM, no deps)."""
+    from .device import enable_compile_cache
     from .preview import preview_frame
 
+    enable_compile_cache()
     d = Decoder(args.input, backend="jax")
     frames = d.frames
     n = len(frames) if args.num_frames is None else min(args.num_frames, len(frames))
@@ -365,8 +368,6 @@ def main(argv: list[str] | None = None) -> int:
                    help="number of frames to export")
     p.add_argument("--output-dir", default=".")
     p.add_argument("--backend", default="auto", choices=("auto", "jax", "numpy"))
-    p.add_argument("--kernel", default="auto", choices=("auto", "pallas", "xla"),
-                   help="device kernel choice for the JAX backend")
     p.add_argument("--batch", action="store_true",
                    help="decode frames in batched device programs")
     p.add_argument("--batch-frames", type=int, default=16,

@@ -2,7 +2,7 @@
 
 The decode pipeline has three stages with different resources:
   1. host parse + metadata-stream scan (CPU; native C++ scanner),
-  2. H2D transfer + device unpack (TPU),
+  2. host-to-device transfer + device unpack,
   3. DNG serialization + file write (CPU).
 Stage 2 is asynchronous under JAX's dispatch, so a simple software pipeline —
 prepare frame i+k while the device decodes frame i and the writer drains

@@ -8,7 +8,7 @@ CalibrationIlluminant1 = 21 = D65, 2 = 17 = Standard A). DNG *consumers*
 then interpolate the two matrix pairs by the correlated color temperature
 of the as-shot white point. This module implements that rendering-side
 math (per the DNG 1.4 specification, chapter "Mapping Camera Color Space
-to CIE XYZ Space") so the TPU preview pipeline can use the properly
+to CIE XYZ Space") so the on-device preview pipeline can use the properly
 interpolated forward matrix instead of forwardMatrix1 alone:
 
   - CIE 1960 UCS coordinates and Robertson's isotherm method for CCT

@@ -3,7 +3,7 @@
 On-disk grammar from lib/include/motioncam/Container.hpp and the reader
 algorithm from lib/Decoder.cpp. The reader memory-maps the file and exposes
 flat uint8 payload views plus parsed JSON metadata; all pixel decoding
-happens downstream (NumPy oracle or TPU kernels).
+happens downstream (NumPy oracle or the device decode).
 
 Layout (Decoder.cpp:116-151, 237-315):
 

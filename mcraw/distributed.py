@@ -18,7 +18,7 @@ Two tiers:
 
 Validated by tests/test_distributed.py: two real processes, a coordinator,
 and a global 2x4-device CPU mesh (the standard JAX multi-process recipe —
-the same code path drives multi-host TPU pods over DCN).
+the same code path drives multi-host GPU clusters).
 """
 
 from __future__ import annotations
@@ -34,9 +34,8 @@ def initialize(
 ) -> None:
     """Join the distributed runtime. Call before any other JAX use.
 
-    On TPU pods the three arguments are discovered automatically and
-    ``initialize()`` may be called with none of them; explicit values are
-    for CPU/GPU clusters and tests.
+    Pass all three explicitly: nothing on a plain GPU or CPU cluster
+    tells JAX the coordinator, so ``initialize()`` without them fails.
     """
     import jax
 
@@ -135,7 +134,7 @@ def decode_batch_global_mesh(decoder, timestamps: list[int], mesh):
         moderns.append(modern)
     if len(set(moderns)) != 1:
         raise ValueError("mixed codecs in one batch")
-    payloads, offsets, cls, refs = stack_plans(plans, moderns[0])
+    payloads, offsets, cls, refs = stack_plans(plans)
 
     # Local payload widths can differ across processes; fix a global width.
     max_len_local = payloads.shape[1]
@@ -151,5 +150,5 @@ def decode_batch_global_mesh(decoder, timestamps: list[int], mesh):
         return jax.make_array_from_process_local_data(sharding, a)
 
     args = tuple(map(globalize, (payloads, offsets, cls, refs)))
-    fn = batched_decoder(plans[0], moderns[0])
+    fn = batched_decoder(plans[0])
     return fn(*args), metas

@@ -391,3 +391,57 @@ class ContainerWriter:
             index_data_offset,
         )
         return bytes(self._out)
+
+
+# -- seeded synthetic content (tests, chip_smoke.py, bench.py) ---------------
+
+SYNTHETIC_KINDS = ("mix12", "worst", "all16")
+
+
+def synthetic_plane(kind: str, height: int, width: int, seed: int) -> np.ndarray:
+    """A seeded (H, W) uint16 source plane of one content mix:
+
+    - ``mix12``: a smooth 12-bit scene plus sensor noise (typical content);
+    - ``worst``: full-range noise plus one 5-bit tile — the slowest mix the
+      format can force (every class path live, near-maximal payload);
+    - ``all16``: full-range noise, every block at 16 bits.
+    """
+    rng = np.random.default_rng(seed)
+    if kind == "mix12":
+        k = seed % 16
+        base = (
+            np.sin(np.arange(width) / (97 + k))[None, :]
+            * np.cos(np.arange(height) / (61 + k))[:, None] * 1200 + 2000
+        )
+        return (base + rng.normal(0, 30, size=(height, width))).clip(
+            0, 4095
+        ).astype(np.uint16)
+    if kind not in SYNTHETIC_KINDS:
+        raise ValueError(f"unknown content kind {kind!r}")
+    img = rng.integers(0, 1 << 16, size=(height, width), dtype=np.uint16)
+    if kind == "worst":
+        img[0:4, 0:64] = rng.integers(0, 32, size=(4, 64), dtype=np.uint16)
+    return img
+
+
+def encode_synthetic(job: tuple) -> bytes:
+    """Encode one ``(kind, height, width, seed, codec)`` synthetic plane."""
+    kind, height, width, seed, codec = job
+    img = synthetic_plane(kind, height, width, seed)
+    return encode_modern(img) if codec == 7 else encode_legacy(img)
+
+
+def encode_synthetic_many(jobs: list[tuple], workers: int | None = None):
+    """:func:`encode_synthetic` over many jobs in spawned worker processes
+    (a 4K frame takes seconds to encode). The workers import no JAX, so a
+    caller that holds a GPU keeps it to itself. Returns payloads in job
+    order."""
+    import os
+    from concurrent.futures import ProcessPoolExecutor
+    from multiprocessing import get_context
+
+    workers = workers or min(16, os.cpu_count() or 1)
+    with ProcessPoolExecutor(
+        max_workers=workers, mp_context=get_context("spawn")
+    ) as pool:
+        return list(pool.map(encode_synthetic, jobs))

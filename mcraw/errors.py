@@ -1,7 +1,7 @@
 """Exception hierarchy mirroring the reference decoder's error model.
 
 The reference defines MotionCamException and IOException (Decoder.hpp:31-39)
-and throws IOException on every failure path. The TPU framework keeps that
+and throws IOException on every failure path. The framework keeps that
 two-level shape and adds DecodeError for codec-level failures, which the
 reference signals only via a <=0 return from raw::Decode (Decoder.cpp:225-230
 then wraps it in an IOException).

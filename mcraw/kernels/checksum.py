@@ -1,101 +1,16 @@
-"""Device-side mod-2^32 checksum at HBM speed.
+"""Device-side mod-2^32 checksum of an integer array.
 
-The obvious XLA consumer `x.astype(uint32).sum()` costs ~0.74 ms for one
-4K uint16 frame on v5e (~34 GB/s — the u16->u32 convert defeats the
-reduction emitter), which silently dominated every kernel benchmark: the
-"~0.8 ms v5 kernel floor" chased in rounds 1-2 was mostly this epilogue
-(benchmarks/probe_floor.json: staged-array sum 0.739 ms vs full kernel
-1.35 ms). This Pallas kernel folds a (H, W) uint16/uint32 array into an
-(8, 128) wrap-around accumulator in VMEM — 2 VPU ops per vreg, ~25 MB at
-memory speed — and only the final 1024-lane fold runs in XLA.
-
-Benchmark harness use: checksums keep outputs live without eliding them
-(CLAUDE.md timing traps) and verify correctness; they are not part of the
-decode product, so their cost must not be billed to the kernels.
+Benchmarks and chip checks fold a decoded frame into one uint32 on the
+device, which keeps the output live and verifies it without copying the
+frame to the host.
 """
 
 from __future__ import annotations
 
-import functools
-
-import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 
-def _checksum_kernel(x_ref, out_ref, acc_ref, band: int, w: int):
-    i = pl.program_id(0)
-    n = pl.num_programs(0)
-
-    @pl.when(i == 0)
-    def _():
-        acc_ref[...] = jnp.zeros((8, 128), jnp.uint32)
-
-    v = x_ref[...].astype(jnp.uint32)  # (band, w)
-    # Fold sublanes in 8-row strips, then lanes in 128-wide strips; uint32
-    # wrap-around addition == int64 sum mod 2^32.
-    acc2d = None
-    for k in range(band // 8):
-        s = v[k * 8 : (k + 1) * 8, :]
-        acc2d = s if acc2d is None else acc2d + s
-    acc = acc_ref[...]
-    for j in range(w // 128):
-        acc = acc + acc2d[:, j * 128 : (j + 1) * 128]
-    acc_ref[...] = acc
-
-    @pl.when(i == n - 1)
-    def _():
-        out_ref[...] = acc_ref[...]
-
-
-def _pick_band(h: int) -> int | None:
-    """Largest multiple-of-8 divisor of h, capped at 512."""
-    best = None
-    for b in range(8, 513, 8):
-        if h % b == 0:
-            best = b
-    return best
-
-
-@functools.partial(jax.jit, static_argnames=("interpret",))
-def _checksum_2d(x: jnp.ndarray, *, interpret: bool = False):
-    h, w = x.shape
-    band = _pick_band(h)
-    out = pl.pallas_call(
-        functools.partial(_checksum_kernel, band=band, w=w),
-        grid=(h // band,),
-        in_specs=[
-            pl.BlockSpec((band, w), lambda i: (i, 0), memory_space=pltpu.VMEM)
-        ],
-        out_specs=pl.BlockSpec(
-            (8, 128), lambda i: (0, 0), memory_space=pltpu.VMEM
-        ),
-        out_shape=jax.ShapeDtypeStruct((8, 128), jnp.uint32),
-        scratch_shapes=[pltpu.VMEM((8, 128), jnp.uint32)],
-        interpret=interpret,
-    )(x)
-    return out.sum(dtype=jnp.uint32)
-
-
-def device_checksum(x: jnp.ndarray, *, interpret: bool | None = None):
-    """uint32 wrap-around sum of an integer device array.
-
-    Equals `int(np.asarray(x).astype(np.int64).sum() & 0xFFFFFFFF)`. Uses
-    the Pallas fold when the geometry allows (2D, lane-aligned width,
-    8-divisible height); falls back to the XLA reduction otherwise.
-    """
-    if interpret is None:
-        # Off-TPU the XLA reduction is fine (the slow path is a TPU layout
-        # pathology) and interpret-mode Pallas would be far slower.
-        if jax.devices()[0].platform == "cpu":
-            return x.astype(jnp.uint32).sum()
-        interpret = False
-    if (
-        x.ndim == 2
-        and x.shape[1] % 128 == 0
-        and x.dtype in (jnp.uint16, jnp.uint32)
-        and _pick_band(x.shape[0]) is not None
-    ):
-        return _checksum_2d(x, interpret=interpret)
-    return x.astype(jnp.uint32).sum()
+def device_checksum(x: jnp.ndarray) -> jnp.ndarray:
+    """uint32 wrap-around sum; equals
+    ``int(np.asarray(x).astype(np.int64).sum() & 0xFFFFFFFF)``."""
+    return x.astype(jnp.uint32).sum(dtype=jnp.uint32)

@@ -19,7 +19,6 @@ from pathlib import Path
 import numpy as np
 
 from . import numpy_ref as R
-from . import tables as T
 from ..errors import DecodeError
 
 _lib = None
@@ -87,18 +86,6 @@ def get_lib():
         ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_uint16),
         ctypes.POINTER(ctypes.c_int64),
     ]
-    if hasattr(lib, "mcraw_length_segments"):
-        lib.mcraw_length_segments.restype = ctypes.c_int64
-        lib.mcraw_length_segments.argtypes = [
-            ctypes.POINTER(ctypes.c_uint16), ctypes.c_int64, ctypes.c_int64,
-            ctypes.POINTER(ctypes.c_int64),
-        ]
-    if hasattr(lib, "mcraw_length_segments2"):
-        lib.mcraw_length_segments2.restype = ctypes.c_int64
-        lib.mcraw_length_segments2.argtypes = [
-            ctypes.POINTER(ctypes.c_uint16), ctypes.c_int64, ctypes.c_int64,
-            ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_uint32),
-        ]
     if hasattr(lib, "mcraw_legacy_scan_range"):
         lib.mcraw_legacy_scan_range.restype = ctypes.c_int64
         lib.mcraw_legacy_scan_range.argtypes = [
@@ -140,55 +127,6 @@ def decode_metadata_stream(data: np.ndarray, offset: int) -> tuple[np.ndarray, i
     if end < 0:
         raise DecodeError("metadata stream truncated")
     return out[:num_blocks], int(end)
-
-
-def length_segments(
-    bits: np.ndarray, stride: int
-) -> tuple[int, np.ndarray] | None:
-    """(total_payload_bytes, per-stride segment sums) for modern bits.
-
-    One native pass replaces the NumPy lengths LUT-gather + reduceat
-    (~0.8 ms/4K frame). Returns None when the extension is unavailable or
-    lacks the symbol (callers fall back to NumPy).
-    """
-    lib = get_lib()
-    if lib is None or not hasattr(lib, "mcraw_length_segments"):
-        return None
-    bits = np.ascontiguousarray(bits, dtype=np.uint16)
-    n = len(bits)
-    nseg = max(0, -(-n // stride)) if stride > 0 else 0
-    seg = np.empty(nseg, dtype=np.int64)
-    total = lib.mcraw_length_segments(
-        bits.ctypes.data_as(ctypes.POINTER(ctypes.c_uint16)),
-        n,
-        stride,
-        seg.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
-    )
-    return int(total), seg
-
-
-def length_segments2(
-    bits: np.ndarray, stride: int
-) -> tuple[int, np.ndarray, int] | None:
-    """length_segments plus a 17-bit clamped-bits presence mask (bit b set
-    <=> some block encodes at b bits) from the same single walk — feeds
-    v5_required_fields_mask without a second pass over the bits stream."""
-    lib = get_lib()
-    if lib is None or not hasattr(lib, "mcraw_length_segments2"):
-        return None
-    bits = np.ascontiguousarray(bits, dtype=np.uint16)
-    n = len(bits)
-    nseg = max(0, -(-n // stride)) if stride > 0 else 0
-    seg = np.empty(nseg, dtype=np.int64)
-    mask = ctypes.c_uint32(0)
-    total = lib.mcraw_length_segments2(
-        bits.ctypes.data_as(ctypes.POINTER(ctypes.c_uint16)),
-        n,
-        stride,
-        seg.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
-        ctypes.byref(mask),
-    )
-    return int(total), seg, int(mask.value)
 
 
 def legacy_scan(

@@ -1,6 +1,6 @@
 """Exact NumPy reference implementations of both MCRAW block codecs.
 
-These are the correctness oracles for the TPU kernels, bit-exact against the
+These are the correctness oracles for the device decode, bit-exact against the
 C++ reference decoders (validated by differential tests via tools/ref_shim):
 
 - ``decode_modern``  == motioncam::raw::Decode        (RawData.cpp:528-612)

@@ -1,7 +1,7 @@
-"""Gather-free per-class unpack: slices, reshapes, shifts — pure VPU code.
+"""Gather-free per-class unpack: slices, reshapes, shifts — integer code only.
 
 The table-driven unpack (unpack.py::_class_unpack) expresses each class as
-constant lane-gathers, which XLA lowers to real gather ops on TPU — slow to
+constant lane-gathers, which XLA lowers to real gather ops — slow to
 compile and slow to run. Every class layout is actually *structured* (it came
 from SIMD code operating on 8-byte vectors), so each decodes with static
 slices and broadcasting only. These functions are the hot versions; tests

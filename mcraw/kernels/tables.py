@@ -1,7 +1,7 @@
 """Bit-field extraction tables for the MCRAW block codecs.
 
 Single source of truth for both codecs' bit layouts, shared by the NumPy
-reference decoders, the JAX/Pallas TPU kernels, and the synthetic encoder.
+reference decoders, the JAX device decode, and the synthetic encoder.
 
 Every decoded value in both codecs is a disjoint OR of at most three byte
 fields of the form ``((payload[pos] >> rshift) & mask) << lshift``. These
@@ -272,54 +272,6 @@ def _pack_tables(
     return pos, rsh, msk, lsh
 
 
-def _word_fields(
-    fields: dict[int, list[list[tuple[int, int, int, int]]]],
-    classes: tuple[int, ...],
-    block: int,
-    max_fields: int,
-):
-    """Word-granularity fields: (widx, rsh32, nbits, lsh) per value.
-
-    The TPU kernels gather whole little-endian 32-bit words, so a byte field
-    ``(pos, rshift, mask, lshift)`` is the word field ``(pos >> 2,
-    8*(pos & 3) + rshift, mask_bits, lshift)``. Consecutive byte fields that
-    are source- AND destination-contiguous within one word merge into a
-    single wider field (e.g. the modern 16-bit class's two bytes become one
-    16-bit extract, RawData.cpp:377-408). Returns dense
-    (n_classes, block, max_fields) arrays widx/rsh/nbits/lsh; unused slots
-    have nbits 0 (mask (1<<0)-1 == 0 contributes nothing).
-    """
-    n = len(classes)
-    widx = np.zeros((n, block, max_fields), dtype=np.int32)
-    rsh = np.zeros((n, block, max_fields), dtype=np.int32)
-    nbits = np.zeros((n, block, max_fields), dtype=np.int32)
-    lsh = np.zeros((n, block, max_fields), dtype=np.int32)
-    for ci, c in enumerate(classes):
-        for j in range(block):
-            merged: list[list[int]] = []
-            for p, r, m, s in fields[c][j]:
-                nb = int(m).bit_length()
-                assert (1 << nb) - 1 == m, (c, j, m)
-                f = [p >> 2, 8 * (p & 3) + r, nb, s]
-                if merged:
-                    g = merged[-1]
-                    if (
-                        g[0] == f[0]
-                        and f[1] == g[1] + g[2]
-                        and f[3] == g[3] + g[2]
-                    ):
-                        g[2] += f[2]
-                        continue
-                merged.append(f)
-            assert len(merged) <= max_fields, (c, j, merged)
-            for fi, (w, r32, nb, s) in enumerate(merged):
-                widx[ci, j, fi] = w
-                rsh[ci, j, fi] = r32
-                nbits[ci, j, fi] = nb
-                lsh[ci, j, fi] = s
-    return widx, rsh, nbits, lsh
-
-
 MODERN_FIELDS = _modern_field_lists()
 LEGACY_FIELDS = _legacy_field_lists()
 
@@ -329,11 +281,6 @@ MODERN_POS, MODERN_RSH, MODERN_MSK, MODERN_LSH = _pack_tables(
 )
 LEGACY_POS, LEGACY_RSH, LEGACY_MSK, LEGACY_LSH = _pack_tables(
     LEGACY_FIELDS, LEGACY_CLASSES, LEGACY_BLOCK, LEGACY_MAX_FIELDS
-)
-
-# Word-granularity modern tables (the v5 kernel's fast field path).
-MODERN_WIDX, MODERN_WRSH, MODERN_WNB, MODERN_WLSH = _word_fields(
-    MODERN_FIELDS, MODERN_CLASSES, MODERN_BLOCK, MODERN_MAX_FIELDS
 )
 
 # bits value (0..16) -> row index into the dense class tables

@@ -1,25 +1,29 @@
-"""TPU (JAX/XLA) decode path for the MCRAW block codecs.
+"""Device (JAX/XLA) decode path for the MCRAW block codecs.
 
 Decomposition (SURVEY.md §7): the serial, tiny parts run on the host — the
 modern codec's two inline-header metadata streams and the legacy codec's
 header chain — producing per-block ``(bits, reference, byte offset)`` arrays.
 The massively parallel part, unpacking every block's payload bytes into
-uint16 values, runs on TPU as one fused XLA computation per frame (or per
-batch of frames via vmap/shard_map):
+uint16 values, runs on the device as one fused XLA computation per frame (or
+per batch of frames via vmap and a frame-sharded mesh):
 
     gather windows -> per-class branchless unpack -> select -> +ref
         -> Bayer de-interleave -> crop
 
-Class-divergent control flow is handled TPU-style: all (few) bit-width
-classes are computed vectorized over every block and combined with a
-one-hot select. The per-class unpack is pure VPU work (shifts/masks/ORs)
-driven by the shared field tables, so the whole frame is one static-shape
-program with no data-dependent branching.
+Class-divergent control flow is computed vectorized: all (few) bit-width
+classes are unpacked over every block and combined with a one-hot select.
+The per-class unpack is integer shifts/masks/ORs driven by the shared field
+tables, so the whole frame is one static-shape, integer-only program with no
+data-dependent branching — exact on every backend.
 
 The modern codec's block payload lengths are all multiples of 8
 (RawData.cpp:27-45) and the main data starts at offset 16, so modern block
 offsets are always 8-byte aligned — the window gather therefore moves
 8-byte rows, not single bytes.
+
+Padded payload lengths follow a fixed per-geometry ladder
+(:func:`payload_bucket`): the jitted decode keys on the payload shape, so
+one clip geometry compiles a handful of programs, not one per frame.
 """
 
 from __future__ import annotations
@@ -39,6 +43,22 @@ from ..errors import DecodeError
 # Host-side preparation (serial, cheap; native C++ fast path when built)
 # -----------------------------------------------------------------------------
 
+# Rungs per geometry in the payload-length ladder. Frames of one clip vary by
+# a few per cent in size, so they share one rung (one compiled program); a
+# clip whose content class changes hops to a neighbouring rung.
+PAYLOAD_BUCKETS = 8
+
+
+def payload_bucket(need: int, full: int) -> int:
+    """Smallest rung of the ladder ``k * step`` (step = full/8, 512-byte
+    aligned) holding `need` bytes. `full` is the geometry's worst-case
+    payload (every block at 16 bits), so a valid frame lands on one of
+    PAYLOAD_BUCKETS rungs; oversized payloads (trailing bytes) extend the
+    ladder by whole steps rather than failing."""
+    step = -(-max(full, 1) // PAYLOAD_BUCKETS)
+    step += (-step) % 512
+    return -(-need // step) * step
+
 
 def pad_or_window(
     payload: np.ndarray, size: int, window: np.ndarray | None = None
@@ -46,9 +66,6 @@ def pad_or_window(
     """A `size`-byte buffer whose head is `payload`: the zero-copy window
     slice when it covers `size`, else zeros + copy.
 
-    THE single implementation of the kernel pad contract (CLAUDE.md: an
-    under-pad here silently reintroduces a multi-MB per-frame copy in the
-    chunk layouts — keep callers' `size` in sync with the chunk span).
     Bytes past the payload are never addressed by any valid block, so the
     window's trailing container bytes are safe.
     """
@@ -77,13 +94,11 @@ def prepare_modern(
     payload: np.ndarray,
     width: int,
     height: int,
-    pad_for_pallas: bool = True,
     window: np.ndarray | None = None,
 ) -> ModernPlan:
     """Parse the modern payload's header + metadata streams (host side).
 
-    pad_for_pallas over-pads the payload buffer so the Pallas kernel's
-    chunked DMA windows exist without a second copy in prepare_chunked.
+    The payload buffer is padded to its :func:`payload_bucket` rung.
     `window`, when given, is a read-only buffer that STARTS AT the payload
     and extends past it (e.g. the rest of the container mmap): if long
     enough it becomes the padded buffer zero-copy, eliding the ~15MB/frame
@@ -117,23 +132,11 @@ def prepare_modern(
     if num_blocks and offsets[-1] + lengths[-1] > n:
         raise DecodeError("main data truncated")
 
-    pad = (-n) % 8 + T.MODERN_MAX_LENGTH
-    if pad_for_pallas and num_blocks:
-        # Over-pad so the v5 kernel's chunked DMA windows exist and
-        # prepare_chunked_v5 can reuse this buffer without a second ~25MB
-        # zeros+copy (a padding shortfall falls back to that copy there, so
-        # this is purely a perf contract — benchmarked at ~5 ms/4K-frame).
-        try:
-            from . import pallas_unpack as PK
-
-            rows_per_chunk = PK.v5_chunk_span_rows(tiles_y, tiles_x)
-        except ImportError:  # pragma: no cover - pallas unavailable
-            rows_per_chunk = 144
-        last_base_row = (int(offsets[-1]) // 4) // 128
-        need = (last_base_row + rows_per_chunk + 8) * 512
-        pad = max(pad, need - n)
-        pad += (-(n + pad)) % 512
-    padded = pad_or_window(payload, n + pad, window)
+    size = payload_bucket(
+        n + (-n) % 8 + T.MODERN_MAX_LENGTH,
+        R.METADATA_OFFSET + num_blocks * T.MODERN_MAX_LENGTH,
+    )
+    padded = pad_or_window(payload, size, window)
     return ModernPlan(
         payload=padded,
         offsets=offsets.astype(np.int32),
@@ -191,21 +194,11 @@ def prepare_legacy(
             scanned = _native.legacy_scan_speculative(payload, num_blocks)
     bits, refs, offs = scanned or _native.legacy_scan(payload, num_blocks)
 
-    n = len(payload)
-    pad = T.LEGACY_MAX_LENGTH
-    if num_blocks:
-        # Over-pad for the v5 kernel's chunk DMA (same contract as modern).
-        try:
-            from . import pallas_legacy as PL
-
-            span = (PL.ROWS_PER_CHUNK_LEG * 8 * 34) // 512 + 2
-            span += (-span) % 8
-        except ImportError:  # pragma: no cover
-            span = 288
-        last_row = int(offs[-1]) // 512
-        pad = max(pad, (last_row + span + 8) * 512 - n)
-        pad += (-(n + pad)) % 512
-    padded = pad_or_window(payload, n + pad, window)
+    size = payload_bucket(
+        len(payload) + T.LEGACY_MAX_LENGTH,
+        num_blocks * (R.HEADER_LENGTH + T.LEGACY_MAX_LENGTH),
+    )
+    padded = pad_or_window(payload, size, window)
     return LegacyPlan(
         payload=padded,
         offsets=offs.astype(np.int32),
@@ -227,7 +220,7 @@ def _class_unpack(w: jnp.ndarray, cls_row: int, modern: bool) -> jnp.ndarray:
 
     Field tables give, for output j and field f, a source byte position —
     a *constant* lane permutation — plus shift/mask constants. XLA folds the
-    constant gathers; everything is VPU shifts/ands/ors.
+    constant gathers; everything else is integer shifts/ands/ors.
     """
     if modern:
         pos, rsh, msk, lsh = T.MODERN_POS, T.MODERN_RSH, T.MODERN_MSK, T.MODERN_LSH
@@ -253,11 +246,11 @@ def unpack_select(
 ) -> jnp.ndarray:
     """(N, MAX_LEN) windows + per-block class -> (N, BLOCK) values.
 
-    Computes every class's unpack and one-hot selects: ~10x the VPU work of
-    an oracle dispatch, but zero divergence and fully fusible — the frame
-    stays HBM-bandwidth-bound. Uses the gather-free structured forms
-    (structured.py); `table_driven=True` selects the table-generated
-    reference forms (tests pin the two to each other).
+    Computes every class's unpack and one-hot selects: ~10x the integer
+    work of an oracle dispatch, but zero divergence and fully fusible.
+    Uses the gather-free structured forms (structured.py);
+    `table_driven=True` selects the table-generated reference forms (tests
+    pin the two to each other).
     """
     from . import structured as S
 
@@ -349,6 +342,23 @@ def decode_legacy_device(
     vals = unpack_select(w, cls, modern=False)
     img = legacy_interleave_jnp(vals, refs, height, padded_width)
     return img[:, :width].astype(jnp.uint16)
+
+
+def geometry_kwargs(plan) -> dict:
+    """The static geometry keywords of the device decode for one plan."""
+    if isinstance(plan, ModernPlan):
+        return dict(tiles_y=plan.tiles_y, tiles_x=plan.tiles_x,
+                    width=plan.width, height=plan.height)
+    return dict(padded_width=plan.padded_width, width=plan.width,
+                height=plan.height)
+
+
+def device_decoder(plan):
+    """The jitted device decode for the plan's codec; call it with the
+    plan's four arrays and ``**geometry_kwargs(plan)``."""
+    if isinstance(plan, ModernPlan):
+        return decode_modern_device
+    return decode_legacy_device
 
 
 # -----------------------------------------------------------------------------

@@ -4,7 +4,7 @@ The reference has no tracing or metrics (SURVEY.md §5 — its only output is
 CLI prints, example.cpp:163,192). This module provides the framework-level
 replacements: a stage timer that aggregates parse / H2D / unpack / emit
 costs, a frames-per-second counter, structured log records, and an optional
-``jax.profiler`` trace context for TPU timeline capture.
+``jax.profiler`` trace context for device timeline capture.
 """
 
 from __future__ import annotations

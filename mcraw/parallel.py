@@ -1,11 +1,13 @@
 """Multi-frame / multi-chip decode: batching, vmap, and shard_map.
 
 The decode workload is embarrassingly frame-parallel (the EOF index gives
-O(1) random access to every frame, Decoder.cpp:237-264), so the natural TPU
-mapping is frame data-parallelism: stack per-frame device inputs along a
-batch axis, vmap the single-frame decode, and shard the batch axis across a
-``jax.sharding.Mesh`` — XLA then runs each frame's unpack on its own chip
-with zero cross-device communication until (optional) gather-for-output.
+O(1) random access to every frame, Decoder.cpp:237-264), so the natural
+device mapping is frame data-parallelism: stack per-frame device inputs
+along a batch axis, vmap the single-frame decode, and shard the batch axis
+across a ``jax.sharding.Mesh`` — XLA then runs each frame's unpack on its
+own device with zero cross-device communication until (optional)
+gather-for-output. Every device reaches every other at the same rate, so the
+mesh follows the frame axis alone.
 """
 
 from __future__ import annotations
@@ -21,24 +23,19 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 from .kernels import unpack as U
 
 
-def stack_plans(plans: list, modern: bool):
+def stack_plans(plans: list):
     """Pad + stack per-frame plans into batch arrays.
 
-    Payload lengths vary per frame; they are padded to the batch max (the
-    per-block offsets make the padding bytes unreachable). Block counts are
-    identical for same-geometry frames.
+    Payload lengths vary per frame; each plan's payload already sits on a
+    rung of the geometry's bucket ladder (unpack.payload_bucket), and the
+    batch pads to the largest rung present, so the batched program keys on
+    a ladder rung too (the per-block offsets make the padding bytes
+    unreachable). Block counts are identical for same-geometry frames.
     """
-    geo = {
-        (p.tiles_y, p.tiles_x, p.width, p.height)
-        if modern
-        else (p.padded_width, p.width, p.height)
-        for p in plans
-    }
-    if len(geo) != 1:
+    if len({tuple(U.geometry_kwargs(p).items()) for p in plans}) != 1:
         raise ValueError("all frames in a batch must share geometry")
 
     max_len = max(len(p.payload) for p in plans)
-    max_len += (-max_len) % 8
     payloads = np.zeros((len(plans), max_len), dtype=np.uint8)
     for i, p in enumerate(plans):
         payloads[i, : len(p.payload)] = p.payload
@@ -48,459 +45,30 @@ def stack_plans(plans: list, modern: bool):
     return payloads, offsets, cls, refs
 
 
-def _batched_modern(tiles_y, tiles_x, width, height):
-    def one(payload, offsets, cls, refs):
-        return U.decode_modern_device.__wrapped__(
-            payload, offsets, cls, refs,
-            tiles_y=tiles_y, tiles_x=tiles_x, width=width, height=height,
-        )
-
-    return jax.jit(jax.vmap(one))
-
-
-def _batched_legacy(padded_width, width, height):
-    def one(payload, offsets, cls, refs):
-        return U.decode_legacy_device.__wrapped__(
-            payload, offsets, cls, refs,
-            padded_width=padded_width, width=width, height=height,
-        )
-
-    return jax.jit(jax.vmap(one))
-
-
-def batched_decoder(plan, modern: bool):
-    """Jitted (F, ...) -> (F, H, W) decode function for one geometry."""
-    if modern:
-        return _batched_modern(plan.tiles_y, plan.tiles_x, plan.width, plan.height)
-    return _batched_legacy(plan.padded_width, plan.width, plan.height)
-
-
-def stack_plans_pallas_v5(plans: list):
-    """Per-frame v5 chunk layouts stacked on a leading frame axis.
-
-    Unlike pallas_unpack.stack_chunked_v5 (which globalizes offsets for one
-    launch), every frame's base rows / word offsets stay FRAME-LOCAL here so
-    the stack can be sharded over a mesh axis: each shard rebases its local
-    frames onto its local payload slab (see decode_frames_pallas_mesh).
-    Returns (payloads (F,R,128), base (F,S), meta (F,nc,8,bp), nc, txp,
-    tr_sub, R).
-    """
-    from .kernels import pallas_unpack as PK
-
-    chunked = [PK.prepare_chunked_v5(p) for p in plans]
-    nc, txp, tr_sub = chunked[0][3:]
-    if any(c[3:] != (nc, txp, tr_sub) for c in chunked):
-        raise ValueError("frames in a batch must share geometry")
-    rows = max(c[0].shape[0] for c in chunked)
-    payloads = np.zeros((len(plans), rows, 128), dtype=np.int32)
-    for i, c in enumerate(chunked):
-        payloads[i, : c[0].shape[0]] = c[0]
-    base = np.stack([c[1] for c in chunked])
-    meta = np.stack([c[2] for c in chunked])
-    return payloads, base, meta, nc, txp, tr_sub, rows
-
-
-def decode_frames_pallas_mesh(
-    plans: list, mesh: Mesh | None, interpret: bool = False
-):
-    """Frame-data-parallel Pallas decode: shard_map over the mesh's frame
-    axis with the fused v5 kernel inside each shard.
-
-    Each device receives a contiguous (F/n, rows, 128) payload slab plus
-    frame-local base rows / metadata; the shard body rebases them onto the
-    local slab and runs ONE kernel launch for its frames. No collectives —
-    frames are independent (SURVEY.md §2.5).
-    """
-    from .kernels import pallas_unpack as PK
-
-    p = plans[0]
-    payloads, base, meta, nc, txp, tr_sub, rows = stack_plans_pallas_v5(plans)
-    f = len(plans)
-    rows_frame = nc * PK.SUBGROUPS_V5 * tr_sub * 4
-    h, w = p.height, p.width
-
-    def body(pay, base_l, meta_l):
-        fl = pay.shape[0]
-        pay2 = pay.reshape(fl * rows, 128)
-        shift = jnp.arange(fl, dtype=jnp.int32) * rows
-        base2 = (base_l + shift[:, None]).reshape(-1)
-        # Rel-meta is frame-local — no rebase, just flatten the frame axis.
-        meta2 = meta_l.reshape(fl * nc, 8, meta_l.shape[3])
-        img3 = PK._unpack_image_pallas_v5.__wrapped__(
-            pay2, base2, meta2,
-            num_chunks=fl * nc, txp=txp, tr_sub=tr_sub, tx=p.tiles_x,
-            nfields=max(PK.v5_required_fields_cls(q.cls) for q in plans),
-            interpret=interpret,
-        )
-        img = img3.reshape(fl, rows_frame, txp * 64)
-        return img[:, :h, :w]
-
-    if mesh is None:
-        return jax.jit(body)(
-            jnp.asarray(payloads), jnp.asarray(base), jnp.asarray(meta)
-        )
-
-    axis = mesh.axis_names[0]
-    n = mesh.devices.size
-    if f % n != 0:
-        raise ValueError(f"batch of {f} not divisible by {n} devices")
-    sharding = NamedSharding(mesh, P(axis))
-    args = [jax.device_put(a, sharding) for a in (payloads, base, meta)]
-    fn = jax.jit(
-        jax.shard_map(
-            body,
-            mesh=mesh,
-            in_specs=(P(axis), P(axis), P(axis)),
-            out_specs=P(axis),
-            # pallas_call's out_shape carries no varying-mesh-axes info.
-            check_vma=False,
-        )
-    )
-    return fn(*args)
-
-
-def decode_frame_sharded(
-    plan, mesh: Mesh, interpret: bool = False
-):
-    """Split ONE frame's decode across the mesh (SURVEY.md §5 long-context
-    analogue: context-parallel-like splitting of one long block sequence).
-
-    The v5 kernel's chunks map to disjoint image-row bands, so sharding the
-    chunk axis shards the output rows: device d runs the fused kernel over
-    its nc/n chunks against the replicated payload (its span DMAs only touch
-    its own chunks' byte ranges) and emits rows [d*R/n, (d+1)*R/n). The
-    result is an (encH_padded, txp*64) image row-sharded over the mesh — no
-    collectives; a consumer reading the full image gathers over ICI.
-    Returns the row-sharded device array cropped to (height, width).
-    """
-    from .kernels import pallas_unpack as PK
-
-    payload2d, base_rows, meta, nc, txp, tr_sub = PK.prepare_chunked_v5(plan)
-    axis = mesh.axis_names[0]
-    n = mesh.devices.size
-    if nc % n != 0:
-        raise ValueError(f"{nc} chunks not divisible by {n} devices")
-    rows_chunk = PK.SUBGROUPS_V5 * tr_sub * 4
-
-    def body(pay, base_l, meta_l):
-        img3 = PK._unpack_image_pallas_v5.__wrapped__(
-            pay,
-            base_l,
-            meta_l,
-            num_chunks=nc // n,
-            txp=txp,
-            tr_sub=tr_sub,
-            tx=plan.tiles_x,
-            nfields=PK.v5_required_fields_cls(plan.cls),
-            interpret=interpret,
-        )
-        return img3.reshape(img3.shape[0], txp * 64)
-
-    sharded = NamedSharding(mesh, P(axis))
-    replicated = NamedSharding(mesh, P())
-    args = (
-        jax.device_put(payload2d, replicated),
-        jax.device_put(base_rows.reshape(nc, PK.SUBGROUPS_V5), sharded),
-        jax.device_put(meta, sharded),
-    )
-    fn = jax.jit(
-        jax.shard_map(
-            lambda pay, b, m: body(pay, b.reshape(-1), m),
-            mesh=mesh,
-            in_specs=(P(), P(axis), P(axis)),
-            out_specs=P(axis),
-            check_vma=False,
-        )
-    )
-    img = fn(*args)
-    return img[: plan.height, : plan.width]
-
-
-def decode_frames_v6_mesh(
-    p32s,
-    bits,
-    refs,
-    *,
-    ty: int,
-    tx: int,
-    height: int,
-    width: int,
-    rows: int | None = None,
-    sub_rows: int | None = None,
-    nfields: int = 3,
-    mesh: Mesh | None = None,
-    interpret: bool = False,
-):
-    """Frame-data-parallel decode with DEVICE-side prep (v6): each shard
-    builds its frames' offsets/meta on its own chip from the raw bits/refs
-    streams and runs one fused kernel launch. The host contribution per
-    frame is just the two serial scans + a payload-bucket upload, so one
-    host can feed a multi-chip mesh (the v5 mesh path's ~2 ms/frame host
-    meta assembly is gone).
-
-    p32s: (F, rows*128) int32, bits/refs: (F, nblk) uint16 — from
-    pallas_unpack.prepare_modern_light, padded to a common bucket.
-    """
-    from .kernels import pallas_unpack as PK
-
-    if mesh is None:
-        # The already-jitted batch entry (cached on its static kwargs) —
-        # building a fresh jit(lambda) here would retrace + re-lower the
-        # whole Mosaic program on every call.
-        return PK.decode_modern_device_v6_batch(
-            p32s, bits, refs,
-            ty=ty, tx=tx, height=height, width=width,
-            rows=rows, sub_rows=sub_rows, nfields=nfields,
-            interpret=interpret,
-        )
-    axis = mesh.axis_names[0]
-    n = mesh.devices.size
-    if p32s.shape[0] % n != 0:
-        raise ValueError(f"batch of {p32s.shape[0]} not divisible by {n} devices")
-    sharding = NamedSharding(mesh, P(axis))
-    args = [jax.device_put(a, sharding) for a in (p32s, bits, refs)]
-    fn = _v6_mesh_fn(
-        mesh, ty=ty, tx=tx, height=height, width=width,
-        rows=rows, sub_rows=sub_rows, nfields=nfields, interpret=interpret,
-    )
-    return fn(*args)
-
-
+# One jitted program per geometry: a fresh jit(vmap(...)) per call would
+# retrace and recompile every batch.
 @functools.lru_cache(maxsize=16)
-def _v6_mesh_fn(
-    mesh, *, ty, tx, height, width, rows, sub_rows, nfields, interpret
-):
-    """Memoized jitted shard_map v6 decoder — one trace/lower per
-    (mesh, geometry, span-bucket) key instead of per call."""
-    from .kernels import pallas_unpack as PK
+def _batched(decode, geometry: tuple):
+    return jax.jit(jax.vmap(functools.partial(decode, **dict(geometry))))
 
-    body = functools.partial(
-        PK.decode_modern_device_v6_batch.__wrapped__,
-        ty=ty, tx=tx, height=height, width=width,
-        rows=rows, sub_rows=sub_rows, nfields=nfields, interpret=interpret,
-    )
-    axis = mesh.axis_names[0]
-    return jax.jit(
-        jax.shard_map(
-            lambda a, b, c: body(a, b, c),
-            mesh=mesh,
-            in_specs=(P(axis), P(axis), P(axis)),
-            out_specs=P(axis),
-            check_vma=False,
-        )
+
+def batched_decoder(plan):
+    """Jitted (F, ...) -> (F, H, W) decode function for the plan's codec
+    and geometry."""
+    return _batched(
+        U.device_decoder(plan).__wrapped__,
+        tuple(U.geometry_kwargs(plan).items()),
     )
 
 
-def decode_frame_sharded_legacy(
-    plan, mesh: Mesh, interpret: bool = False
-):
-    """Legacy twin of decode_frame_sharded: split ONE legacy frame across
-    the mesh (SURVEY.md §5 long-context analogue, closing the legacy half
-    of that surface).
-
-    The legacy v5 kernel's chunks are consecutive kernel rows = disjoint
-    image-row segments, so sharding the chunk axis shards the output rows:
-    device d runs the fused kernel over its nc/n chunks against the
-    replicated payload (its span DMAs touch only its own chunks' byte
-    ranges — the chunk-parallel affordance the trailing offset table
-    exists for, RawData_Legacy.cpp:452-469). No collectives; a consumer
-    reading the full image gathers over ICI. Returns the row-sharded
-    (H, W) array.
-    """
-    from .kernels import pallas_legacy as PL
-
-    payload2d, base_rows, meta, nc, segs, rows = (
-        PL.prepare_chunked_legacy_v5(plan)
-    )
-    axis = mesh.axis_names[0]
-    n = mesh.devices.size
-    if nc % n != 0:
-        raise ValueError(f"{nc} chunks not divisible by {n} devices")
-    b = meta.shape[1]
-    h, w = plan.height, plan.width
-
-    def body(pay, base_l, meta_l):
-        return PL._unpack_legacy_pallas_v5.__wrapped__(
-            pay, base_l, meta_l,
-            num_chunks=nc // n, rows=rows, interpret=interpret,
-        )
-
-    sharded = NamedSharding(mesh, P(axis))
-    replicated = NamedSharding(mesh, P())
-    args = (
-        jax.device_put(payload2d, replicated),
-        jax.device_put(base_rows.reshape(n, nc // n), sharded),
-        jax.device_put(meta, sharded),
-    )
-    fn = jax.jit(
-        jax.shard_map(
-            lambda pay, bl, m: body(pay, bl.reshape(-1), m),
-            mesh=mesh,
-            in_specs=(P(), P(axis), P(axis)),
-            out_specs=P(axis),
-            check_vma=False,
-        )
-    )
-    out = fn(*args)  # (nc*b, 128) row-sharded kernel rows
-    img = out[: h * segs].reshape(h, segs * 128)
-    return img[:, :w]
-
-
-def decode_frames_legacy_v6_mesh(
-    p32s,
-    offs,
-    bits,
-    refs,
-    *,
-    pw: int,
-    h: int,
-    width: int,
-    rows: int,
-    mesh: Mesh | None = None,
-    interpret: bool = False,
-):
-    """Legacy twin of decode_frames_v6_mesh: each shard lays out its own
-    frames' kernel metadata on device from the raw scan outputs (pure
-    reshapes — see pallas_legacy._v6_legacy_build) and runs one fused
-    launch. Host work per frame: the serial header scan + a payload-bucket
-    upload, so one host feeds a multi-chip mesh."""
-    from .kernels import pallas_legacy as PL
-
-    if mesh is None:
-        return PL.decode_legacy_device_v6_batch(
-            p32s, offs, bits, refs,
-            pw=pw, h=h, width=width, rows=rows, interpret=interpret,
-        )
-    axis = mesh.axis_names[0]
-    n = mesh.devices.size
-    if p32s.shape[0] % n != 0:
-        raise ValueError(
-            f"batch of {p32s.shape[0]} not divisible by {n} devices"
-        )
-    sharding = NamedSharding(mesh, P(axis))
-    args = [jax.device_put(a, sharding) for a in (p32s, offs, bits, refs)]
-    fn = _legacy_v6_mesh_fn(
-        mesh, pw=pw, h=h, width=width, rows=rows, interpret=interpret
-    )
-    return fn(*args)
-
-
-@functools.lru_cache(maxsize=16)
-def _legacy_v6_mesh_fn(mesh, *, pw, h, width, rows, interpret):
-    from .kernels import pallas_legacy as PL
-
-    body = functools.partial(
-        PL.decode_legacy_device_v6_batch.__wrapped__,
-        pw=pw, h=h, width=width, rows=rows, interpret=interpret,
-    )
-    axis = mesh.axis_names[0]
-    return jax.jit(
-        jax.shard_map(
-            lambda a, b, c, d: body(a, b, c, d),
-            mesh=mesh,
-            in_specs=(P(axis), P(axis), P(axis), P(axis)),
-            out_specs=P(axis),
-            check_vma=False,
-        )
-    )
-
-
-def decode_frames_legacy_mesh(
-    plans: list, mesh: Mesh | None, interpret: bool = False
-):
-    """Legacy twin of decode_frames_pallas_mesh: fused legacy v5 kernel per
-    shard, frame-local byte offsets rebased onto each shard's payload slab.
-    """
-    from .kernels import pallas_legacy as PL
-
-    p = plans[0]
-    chunked = [PL.prepare_chunked_legacy_v5(pl) for pl in plans]
-    nc, segs = chunked[0][3], chunked[0][4]
-    if any(c[3:5] != (nc, segs) for c in chunked):
-        raise ValueError("frames in a batch must share geometry")
-    krows = max(c[5] for c in chunked)
-    rows = max(c[0].shape[0] for c in chunked)
-    f = len(plans)
-    payloads = np.zeros((f, rows, 128), dtype=np.int32)
-    for i, c in enumerate(chunked):
-        payloads[i, : c[0].shape[0]] = c[0]
-    base = np.stack([c[1] for c in chunked])
-    meta = np.stack([c[2] for c in chunked])
-    b = meta.shape[2]
-    h, w = p.height, p.width
-
-    def body(pay, base_l, meta_l):
-        fl = pay.shape[0]
-        pay2 = pay.reshape(fl * rows, 128)
-        shift = jnp.arange(fl, dtype=jnp.int32) * rows
-        base2 = (base_l + shift[:, None]).reshape(-1)
-        # meta offsets are chunk-relative (shift-invariant): no rebase.
-        meta2 = meta_l.reshape(fl * nc, b, 24)
-        out = PL._unpack_legacy_pallas_v5.__wrapped__(
-            pay2, base2, meta2, num_chunks=fl * nc, rows=krows,
-            interpret=interpret,
-        )
-        rows_frame = out.shape[0] // fl
-        out = out.reshape(fl, rows_frame, 128)[:, : h * segs]
-        return out.reshape(fl, h, segs * 128)[:, :, :w]
-
-    if mesh is None:
-        return jax.jit(body)(
-            jnp.asarray(payloads), jnp.asarray(base), jnp.asarray(meta)
-        )
-    axis = mesh.axis_names[0]
-    if f % mesh.devices.size != 0:
-        raise ValueError(
-            f"batch of {f} not divisible by {mesh.devices.size} devices"
-        )
-    sharding = NamedSharding(mesh, P(axis))
-    args = [jax.device_put(a, sharding) for a in (payloads, base, meta)]
-    fn = jax.jit(
-        jax.shard_map(
-            body,
-            mesh=mesh,
-            in_specs=(P(axis), P(axis), P(axis)),
-            out_specs=P(axis),
-            check_vma=False,
-        )
-    )
-    return fn(*args)
-
-
-def decode_frames_batched(
-    plans: list, modern: bool, mesh: Mesh | None = None, kernel: str = "auto"
-):
+def decode_frames_batched(plans: list, mesh: Mesh | None = None):
     """Decode a batch of same-geometry frames in one device program.
 
     With a mesh, inputs are frame-batch sharded over the first mesh axis
-    (SPMD, no collectives — frames are independent). Both codecs use their
-    fused Pallas v5 kernels, unsharded and per-shard under the mesh
-    (shard_map); the XLA path covers CPU and explicit kernel='xla'.
+    (SPMD, no collectives — frames are independent).
     """
-    platform = jax.devices()[0].platform
-    use_pallas = kernel == "pallas" or (
-        kernel == "auto" and platform not in ("cpu",)
-    )
-    if use_pallas:
-        interpret = platform == "cpu"  # Mosaic compiles on TPU only
-        if modern:
-            from .kernels import pallas_unpack as PK
-
-            if mesh is not None:
-                return decode_frames_pallas_mesh(
-                    plans, mesh, interpret=interpret
-                )
-            return PK.decode_modern_pallas_batch_v5(
-                plans, interpret=interpret
-            )
-        from .kernels import pallas_legacy as PL
-
-        if mesh is not None:
-            return decode_frames_legacy_mesh(plans, mesh, interpret=interpret)
-        return PL.decode_legacy_pallas_batch_v5(plans, interpret=interpret)
-
-    payloads, offsets, cls, refs = stack_plans(plans, modern)
-    fn = batched_decoder(plans[0], modern)
+    payloads, offsets, cls, refs = stack_plans(plans)
+    fn = batched_decoder(plans[0])
 
     if mesh is not None:
         axis = mesh.axis_names[0]
@@ -550,7 +118,7 @@ def decode_clips(decoders: list, mesh: Mesh | None = None, frames_per_clip=None)
     c, f = len(all_plans), len(all_plans[0])
     # round-robin interleave: batch index = frame*C + clip
     flat = [all_plans[ci][fi] for fi in range(f) for ci in range(c)]
-    imgs = decode_frames_batched(flat, moderns[0], mesh=mesh)
+    imgs = decode_frames_batched(flat, mesh=mesh)
     h, w = imgs.shape[1], imgs.shape[2]
     imgs = imgs.reshape(f, c, h, w).transpose(1, 0, 2, 3)
     return imgs, all_metas

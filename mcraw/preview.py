@@ -1,10 +1,10 @@
-"""Fused on-TPU preview pipeline: packed payload -> display-ready RGB.
+"""On-device preview pipeline: packed payload -> display-ready RGB.
 
 New capability beyond the reference (BASELINE config 5 — live RAW playback):
-decode -> black/white normalize -> white balance -> mask-normalized bilinear
-demosaic (convolutions, MXU-friendly) -> camera->sRGB color transform ->
-gamma, all one jitted program so XLA fuses the epilogue into the decode and
-the frame never round-trips to host between stages.
+decode -> black/white normalize -> white balance -> demosaic (mask-normalized
+bilinear, or Malvar-He-Cutler) -> camera->sRGB color transform -> gamma, all
+in jitted `jax.numpy` programs, so XLA fuses the epilogue and the frame never
+round-trips to the host between stages.
 
 Color model: full dual-illuminant DNG rendering math — the camera->XYZ(D50)
 forward matrix is interpolated between forwardMatrix1 (D65) and
@@ -15,8 +15,14 @@ into DNG tags, example.cpp:69-72 + :117-124 — consumers do this math).
 Then Bradford D50->D65 adaptation and the sRGB primaries matrix. The one
 remaining simplification: no ProfileHueSatMap/LookTable handling — the
 container format carries no such tags, so there is nothing to apply.
-The fidelity bound vs an f64 scalar model of this exact pipeline is
-pinned in tests/test_preview.py (<= 1/255 per channel).
+
+Precision: the develop runs in float32. Its one matrix product (the 3x3
+color matrices) is taken at Precision.HIGHEST, because a float32 product on
+a GPU may otherwise run in TF32; the per-pixel color transform is
+elementwise scalar arithmetic. Against the float64 scalar model
+(:func:`develop_f64`) every 8-bit channel stays within 1 LSB — float32
+rounding against float64, and `pow` in the sRGB curve, can move a value
+that sits on a rounding boundary. tests/test_preview.py pins the bound.
 """
 
 from __future__ import annotations
@@ -55,12 +61,8 @@ def _phase_masks(height: int, width: int, cfa: tuple[int, ...]):
 
 
 def _conv2same(x: jnp.ndarray, k: np.ndarray) -> jnp.ndarray:
-    """Single-channel 3x3 'same' convolution as shifted adds.
-
-    A C=1 conv_general_dilated can't feed the MXU (no channel dim to
-    contract) and measured ~40 ms per call at 4K on v5e; the unrolled
-    pad+slice form is pure VPU work and effectively free.
-    """
+    """Single-channel 3x3 'same' convolution (zero padded) as shifted
+    adds, which XLA fuses into one elementwise pass."""
     h, w = x.shape
     p = jnp.pad(x, 1)
     acc = None
@@ -77,24 +79,6 @@ def _conv2same(x: jnp.ndarray, k: np.ndarray) -> jnp.ndarray:
 
 _K_CROSS = np.array([[0, 1, 0], [1, 4, 1], [0, 1, 0]], dtype=np.float32)
 _K_FULL = np.array([[1, 2, 1], [2, 4, 2], [1, 2, 1]], dtype=np.float32)
-
-# The normalizer conv(mask) is static per geometry: precompute its
-# reciprocal so the per-frame work is one multiply, not a full conv + a
-# divide (the three mask convs were ~45 full-frame passes per frame).
-# Entries are ~150 MB each at 4K, so both caches are capped LRU-style to
-# the most recent geometries instead of growing without bound.
-_INV_DEN_CACHE: dict = {}
-_INV_DEN_CACHE_MAX = 2
-
-
-def _cache_put(cache: dict, key, value):
-    """Insert + evict oldest beyond _INV_DEN_CACHE_MAX (dicts are
-    insertion-ordered; re-inserting refreshes recency)."""
-    cache.pop(key, None)
-    cache[key] = value
-    while len(cache) > _INV_DEN_CACHE_MAX:
-        cache.pop(next(iter(cache)))
-
 
 def _np_conv2same(x: np.ndarray, k: np.ndarray) -> np.ndarray:
     h, w = x.shape
@@ -156,13 +140,12 @@ def develop_f64(raw, black, white, neutral, fwd, cfa,
     kernels instead of bilinear. WB is applied BEFORE the demosaic (the
     MHC correction terms mix channels, so the gains must be on-site);
     border taps are zero-padded (the 2px ring is clip-darkened — the
-    kernel implements identical semantics). Bilinear keeps its original
+    device develop implements identical semantics). Bilinear keeps its original
     WB-after-normalized-conv form (channels never mix there).
 
-    This is the ground truth the Pallas develop kernel is bounded against
-    (<= 1 LSB): tests/test_preview.py pins the bound on small frames, and
-    bench.py's preview leg re-checks one full 4K frame against it on
-    hardware before certifying decode_develop_fps."""
+    This is the ground truth the device develop is bounded against
+    (<= 1 LSB per channel): tests/test_preview.py pins the bound on small
+    frames, and chip_smoke.py re-checks full 4K frames on the GPU."""
     h, w = raw.shape
     yy = np.arange(h)[:, None] % 2
     xx = np.arange(w)[None, :] % 2
@@ -195,118 +178,153 @@ def develop_f64(raw, black, white, neutral, fwd, cfa,
     return np.round(np.clip(rgb, 0, 1) * 255.0).astype(np.int64)
 
 
-def _inv_dens(height: int, width: int, cfa: tuple[int, ...]) -> np.ndarray:
-    key = (height, width, cfa)
-    c = _INV_DEN_CACHE.get(key)
-    if c is None:
-        masks = _phase_masks(height, width, cfa)
-        c = np.stack(
-            [
-                1.0 / _np_conv2same(masks[ch], k)
-                for ch, k in ((0, _K_FULL), (1, _K_CROSS), (2, _K_FULL))
-            ]
-        ).astype(np.float32)
-    _cache_put(_INV_DEN_CACHE, key, c)
-    return c
+def _site_channel(y_even, x_even, cfa: tuple[int, ...]):
+    """CFA channel of each site from its row/column parity."""
+    return jnp.where(
+        y_even,
+        jnp.where(x_even, cfa[0], cfa[1]),
+        jnp.where(x_even, cfa[2], cfa[3]),
+    )
 
 
-_INV_DEN_DEV_CACHE: dict = {}
+def _mask_normalizer(height: int, width: int, cfa: tuple[int, ...],
+                     c: int, k: np.ndarray) -> jnp.ndarray:
+    """conv2same(mask_c, k) in closed form, built from iotas in-graph.
+
+    Each tap's shifted mask is a parity select and the zero padding an
+    in-range test, so the normalizer costs a few fused integer ops per
+    pixel instead of a stored (3, H, W) table. The sums are small exact
+    integers in float32, so the result equals the table bit for bit."""
+    y = jnp.arange(height)[:, None]
+    x = jnp.arange(width)[None, :]
+    den = None
+    for dy in range(3):
+        for dx in range(3):
+            wgt = float(k[dy, dx])
+            if wgt == 0.0:
+                continue
+            yy, xx = y + (dy - 1), x + (dx - 1)
+            hit = (
+                (_site_channel(yy % 2 == 0, xx % 2 == 0, cfa) == c)
+                & (yy >= 0) & (yy < height) & (xx >= 0) & (xx < width)
+            )
+            t = jnp.where(hit, jnp.float32(wgt), jnp.float32(0.0))
+            den = t if den is None else den + t
+    return den
 
 
-def _inv_dens_device(height: int, width: int, cfa: tuple[int, ...]):
-    """Device-resident 1/conv(mask) normalizers, uploaded once per
-    geometry (~150 MB at 4K — far too big to bake into the program)."""
-    key = (height, width, cfa)
-    c = _INV_DEN_DEV_CACHE.get(key)
-    if c is None:
-        c = jnp.asarray(_inv_dens(height, width, cfa))
-    _cache_put(_INV_DEN_DEV_CACHE, key, c)
-    return c
-
-
-def bilinear_demosaic(
-    raw: jnp.ndarray, masks, inv_dens: jnp.ndarray, gains=None
-) -> jnp.ndarray:
-    """Mask-normalized bilinear demosaic. raw: (H, W) float; masks: 3-list
-    of (H, W) float; inv_dens (3, H, W) precomputed 1/conv(mask) (borders
-    included); gains: optional (3,) per-channel scale folded into the
-    normalizer (white balance commutes with the per-channel linear conv).
-    Returns (H, W, 3)."""
+def _bilinear(x, chan, gains, height, width, cfa):
+    """Mask-normalized bilinear demosaic; white balance (per-channel
+    gains) folds into the normalizer, since it commutes with the
+    per-channel linear conv. Returns (H, W, 3)."""
     out = []
     for c, k in ((0, _K_FULL), (1, _K_CROSS), (2, _K_FULL)):
-        num = _conv2same(raw * masks[c], k)
-        inv = inv_dens[c] if gains is None else inv_dens[c] * gains[c]
-        out.append(num * inv)
+        num = _conv2same(jnp.where(chan == c, x, 0.0), k)
+        inv = 1.0 / _mask_normalizer(height, width, cfa, c, k)
+        out.append(num * (inv * gains[c]))
     return jnp.stack(out, axis=-1)
 
 
-@functools.partial(jax.jit, static_argnames=("height", "width", "cfa"))
+def _malvar(xm, chan, hc):
+    """Malvar-He-Cutler 5x5 gradient-corrected demosaic, the float32
+    twin of _malvar_f64 (same estimators, zero-padded taps, per-site
+    class select) on a white-balanced mosaic. Returns (H, W, 3)."""
+    h, w = xm.shape
+    p = jnp.pad(xm, 2)
+
+    def sh(dy, dx):
+        return p[2 + dy : 2 + dy + h, 2 + dx : 2 + dx + w]
+
+    h1 = sh(0, 1) + sh(0, -1)
+    v1 = sh(1, 0) + sh(-1, 0)
+    h2 = sh(0, 2) + sh(0, -2)
+    v2 = sh(2, 0) + sh(-2, 0)
+    d1 = sh(1, 1) + sh(1, -1) + sh(-1, 1) + sh(-1, -1)
+    k1 = (4.0 * xm + 2.0 * (h1 + v1) - (h2 + v2)) * 0.125
+    k2 = (5.0 * xm + 4.0 * h1 - d1 - h2 + 0.5 * v2) * 0.125
+    k3 = (5.0 * xm + 4.0 * v1 - d1 - v2 + 0.5 * h2) * 0.125
+    k4 = (6.0 * xm + 2.0 * d1 - 1.5 * (h2 + v2)) * 0.125
+
+    g = jnp.where(chan == 1, xm, k1)
+    r = jnp.where(
+        chan == 0, xm,
+        jnp.where(chan == 1, jnp.where(hc == 0, k2, k3), k4),
+    )
+    b = jnp.where(
+        chan == 2, xm,
+        jnp.where(chan == 1, jnp.where(hc == 2, k2, k3), k4),
+    )
+    return jnp.stack([r, g, b], axis=-1)
+
+
+def color_matrix(forward_matrix: jnp.ndarray) -> jnp.ndarray:
+    """Camera -> linear sRGB: XYZ(D50)->sRGB times the forward matrix, at
+    Precision.HIGHEST (a float32 product may otherwise run in TF32)."""
+    return jnp.matmul(
+        jnp.asarray(_XYZ_D50_TO_SRGB),
+        forward_matrix.astype(jnp.float32),
+        precision=jax.lax.Precision.HIGHEST,
+    )
+
+
+@functools.partial(
+    jax.jit, static_argnames=("height", "width", "cfa", "demosaic")
+)
 def develop(
     raw_u16: jnp.ndarray,
     black_level: jnp.ndarray,  # (4,) per CFA position
     white_level: jnp.ndarray,  # scalar
     as_shot_neutral: jnp.ndarray,  # (3,)
     forward_matrix: jnp.ndarray,  # (3, 3) camera -> XYZ D50
-    inv_dens: jnp.ndarray,  # (3, H, W) 1/conv(mask), _inv_dens_device
     *,
     height: int,
     width: int,
     cfa: tuple[int, ...],
+    demosaic: str = "bilinear",
 ) -> jnp.ndarray:
     """(H, W) uint16 Bayer -> (H, W, 3) uint8 sRGB preview.
 
-    inv_dens: (3, H, W) from _inv_dens_device (passed as a runtime arg —
-    baking it as a program constant blows up the compile payload at 4K).
-    Masks are built in-graph from parity iotas (no big constants).
+    demosaic: "bilinear" (mask-normalized) or "malvar" (Malvar-He-Cutler
+    5x5 gradient-corrected; white balance applied before the demosaic,
+    since its correction terms mix channels). Masks, per-site levels and
+    normalizers are all built in-graph from parity iotas.
     """
-    yy2 = jnp.arange(height)[:, None] % 2 == 0
-    xx2 = jnp.arange(width)[None, :] % 2 == 0
-    chan = jnp.where(
-        yy2,
-        jnp.where(xx2, cfa[0], cfa[1]),
-        jnp.where(xx2, cfa[2], cfa[3]),
-    )
-    masks = [(chan == c).astype(jnp.float32) for c in range(3)]
+    if demosaic not in ("bilinear", "malvar"):
+        raise ValueError(f"unknown demosaic {demosaic!r}")
+    y_even = jnp.arange(height)[:, None] % 2 == 0
+    x_even = jnp.arange(width)[None, :] % 2 == 0
+    chan = _site_channel(y_even, x_even, cfa)
 
-    # Per-site black level (blackLevel is 2x2, BlackLevelRepeatDim 2x2).
-    # Selects, NOT bl2x2[yy, xx]: that 12M-element gather from a 4-element
-    # table costs ~136 ms on TPU (XLA gather); two wheres are free.
-    yy = jnp.arange(height)[:, None] % 2 == 0
-    xx = jnp.arange(width)[None, :] % 2 == 0
+    # Per-site black level (blackLevel is 2x2, BlackLevelRepeatDim 2x2) and
+    # the per-site reciprocal of (white - black), arranged by parity selects.
     b = black_level.astype(jnp.float32)
-    bl = jnp.where(
-        yy,
-        jnp.where(xx, b[0], b[1]),
-        jnp.where(xx, b[2], b[3]),
-    )
-
-    # (raw - bl) * 1/(white - bl): the per-site reciprocal is 4 scalars
-    # arranged by the same parity wheres (a full-frame divide is ~an order
-    # slower than a multiply on the VPU).
     wf = white_level.astype(jnp.float32)
-    inv_scale = jnp.where(
-        yy,
-        jnp.where(xx, 1.0 / (wf - b[0]), 1.0 / (wf - b[1])),
-        jnp.where(xx, 1.0 / (wf - b[2]), 1.0 / (wf - b[3])),
+    bl = jnp.where(
+        y_even,
+        jnp.where(x_even, b[0], b[1]),
+        jnp.where(x_even, b[2], b[3]),
     )
-    x = (raw_u16.astype(jnp.float32) - bl) * inv_scale
-    x = jnp.clip(x, 0.0, 1.0)
+    inv_scale = jnp.where(
+        y_even,
+        jnp.where(x_even, 1.0 / (wf - b[0]), 1.0 / (wf - b[1])),
+        jnp.where(x_even, 1.0 / (wf - b[2]), 1.0 / (wf - b[3])),
+    )
+    x = jnp.clip((raw_u16.astype(jnp.float32) - bl) * inv_scale, 0.0, 1.0)
 
-    # White balance (divide by AsShotNeutral, G == 1) folds into the
-    # demosaic normalizer: per-channel scales commute with the conv.
+    # White balance: divide by AsShotNeutral (G == 1).
     gains = 1.0 / as_shot_neutral.astype(jnp.float32)
-    rgb = bilinear_demosaic(x, masks, inv_dens, gains)
+    if demosaic == "malvar":
+        site_gain = jnp.where(
+            chan == 0, gains[0], jnp.where(chan == 1, gains[1], gains[2])
+        )
+        hc = _site_channel(y_even, ~x_even, cfa)
+        rgb = _malvar(x * site_gain, chan, hc)
+    else:
+        rgb = _bilinear(x, chan, gains, height, width, cfa)
     rgb = jnp.clip(rgb, 0.0, 1.0)
 
-    # Camera -> XYZ(D50) -> linear sRGB, as elementwise scalar muls (an
-    # einsum here lowers to a bf16 MXU matmul on TPU, and HIGHEST is not
-    # honored once it fuses into the larger program). NOTE: even in this
-    # form, XLA-on-TPU loses ~bf16-level precision SOMEWHERE in this big
-    # fusion (up to ~20/255 vs the f64 reference, found by the Pallas
-    # kernel's ground-truth differential); the fused kernel
-    # (kernels/pallas_develop.py) holds <= 1 LSB and is the primary
-    # path — this XLA pipeline remains the fallback for odd widths/CPU.
-    m = jnp.asarray(_XYZ_D50_TO_SRGB) @ forward_matrix.astype(jnp.float32)
+    # Camera -> XYZ(D50) -> linear sRGB as elementwise scalar muls.
+    m = color_matrix(forward_matrix)
     rgb = jnp.stack(
         [
             m[r, 0] * rgb[:, :, 0]
@@ -327,140 +345,79 @@ def develop(
     return jnp.round(jnp.clip(rgb, 0.0, 1.0) * 255.0).astype(jnp.uint8)
 
 
-def develop_rgba(
-    raw_u16,
-    black_level,
-    white_level,
-    as_shot_neutral,
-    forward_matrix,
-    *,
-    height: int,
-    width: int,
-    cfa: tuple,
-    use_table: bool = False,
-    demosaic: str = "bilinear",
-    interpret: bool = False,
-) -> jax.Array:
-    """(H, W) uint32 RGBA8888 via the fused Pallas develop kernel
-    (kernels/pallas_develop.py) — one pass over row bands instead of the
-    XLA pipeline's HBM-crossing fusions (~3.7 -> ~1 ms at 4K). Matches
-    `develop` to <= 1 LSB (conv fp add order differs). Requires
-    any width (lane-padded internally); only height <= 2 falls back.
-
-    Default: the mask normalizer is computed in-kernel (bitwise-identical
-    to the precomputed table — exact small-integer conv sums — while
-    skipping the (3H, W) f32 HBM stream AND the ~150 MB host table build +
-    upload per geometry). use_table=True keeps the streamed-table A/B
-    baseline shared with the XLA pipeline.
-
-    demosaic="malvar": Malvar-He-Cutler 5x5 gradient-corrected demosaic
-    (the ISP-standard quality upgrade over bilinear: gradient terms from
-    the co-sited channel suppress zipper artifacts). Compute mode only;
-    <= 1 LSB vs the develop_f64 malvar model."""
-    from .kernels import pallas_develop as PD
-
-
-    params = jnp.asarray(
-        PD.pack_develop_params(
-            np.asarray(black_level),
-            np.asarray(white_level),
-            np.asarray(as_shot_neutral),
-            np.asarray(forward_matrix),
-        )
-    )
-    inv2d = (
-        _inv_dens_device(height, width, tuple(cfa)).reshape(
-            3 * height, width
-        )
-        if use_table
-        else None
-    )
-    return PD.develop_rgba_pallas(
-        raw_u16, params, inv2d,
-        height=height, width=width, cfa=tuple(cfa), demosaic=demosaic,
-        interpret=interpret,
-    )
-
-
-def _fused_eligible(height: int, width: int) -> bool:
-    """The fused kernel handles any width (it lane-pads internally); only
-    degenerate heights (no interior rows for the halo bands) fall back to
-    the XLA pipeline."""
-    return height > 2
-
-
-def _frame_rgba(img, fm, cm, cfa, interpret: bool,
-                demosaic: str = "bilinear") -> jax.Array:
-    """Shared develop dispatch: fused Pallas kernel when eligible, else
-    the XLA pipeline packed to RGBA. The single home of the eligibility
-    rule (preview_frame / preview_frame_rgba / preview_clip all route
-    here). demosaic="malvar" needs the fused kernel; the XLA fallback
-    only implements bilinear, so degenerate geometries fall back to
-    bilinear regardless."""
-    from .color import interpolated_matrices
-
-    fwd, _, _ = interpolated_matrices(cm, fm.as_shot_neutral)
-    args = (
-        jnp.asarray(cm.black_level),
-        jnp.asarray(np.float32(cm.white_level)),
-        jnp.asarray(fm.as_shot_neutral),
-        jnp.asarray(fwd.astype(np.float32)),
-    )
-    if _fused_eligible(fm.height, fm.width):
-        return develop_rgba(
-            img, *args,
-            height=fm.height, width=fm.width, cfa=cfa,
-            demosaic=demosaic, interpret=interpret,
-        )
-    if demosaic != "bilinear":
-        # The XLA fallback implements only bilinear; silently substituting
-        # it would misrepresent the requested mode.
-        raise ValueError(
-            f"demosaic={demosaic!r} needs the fused kernel, which this "
-            f"geometry ({fm.height}x{fm.width}) cannot use"
-        )
-    rgb = develop(
-        img, *args, _inv_dens_device(fm.height, fm.width, cfa),
-        height=fm.height, width=fm.width, cfa=cfa,
-    )
+def pack_rgba(rgb: jnp.ndarray) -> jnp.ndarray:
+    """(..., 3) uint8 -> (...) uint32 RGBA8888 with alpha 255."""
     r = rgb.astype(jnp.uint32)
     return (
-        r[:, :, 0] | (r[:, :, 1] << 8) | (r[:, :, 2] << 16)
+        r[..., 0] | (r[..., 1] << 8) | (r[..., 2] << 16)
         | jnp.uint32(0xFF000000)
     )
 
 
-def _on_cpu() -> bool:
-    import jax as _jax
+@functools.partial(
+    jax.jit, static_argnames=("height", "width", "cfa", "demosaic")
+)
+def develop_rgba(raw_u16, black_level, white_level, as_shot_neutral,
+                 forward_matrix, *, height: int, width: int,
+                 cfa: tuple[int, ...], demosaic: str = "bilinear"):
+    """:func:`develop` packed to (H, W) uint32 RGBA8888."""
+    return pack_rgba(
+        develop.__wrapped__(
+            raw_u16, black_level, white_level, as_shot_neutral,
+            forward_matrix, height=height, width=width, cfa=cfa,
+            demosaic=demosaic,
+        )
+    )
 
-    return _jax.devices()[0].platform == "cpu"
+
+@functools.partial(
+    jax.jit, static_argnames=("height", "width", "cfa", "demosaic")
+)
+def develop_rgba_batch(raws, black_level, white_level, as_shot_neutrals,
+                       forward_matrices, *, height: int, width: int,
+                       cfa: tuple[int, ...], demosaic: str = "bilinear"):
+    """(F, H, W) frames -> (F, H, W) RGBA8888 in one program (vmap of
+    :func:`develop_rgba`). Levels are per container; neutrals (F, 3) and
+    forward matrices (F, 3, 3) are per frame."""
+    one = functools.partial(
+        develop_rgba.__wrapped__, height=height, width=width, cfa=cfa,
+        demosaic=demosaic,
+    )
+    return jax.vmap(one, in_axes=(0, None, None, 0, 0))(
+        raws, black_level, white_level, as_shot_neutrals, forward_matrices
+    )
+
+
+def _frame_params(fm: FrameMetadata, cm: ContainerMetadata):
+    """(black, white, neutral, forward matrix) for one frame, host-side."""
+    from .color import interpolated_matrices
+
+    fwd, _, _ = interpolated_matrices(cm, fm.as_shot_neutral)
+    return (
+        np.asarray(cm.black_level, np.float32),
+        np.float32(cm.white_level),
+        np.asarray(fm.as_shot_neutral, np.float32),
+        fwd.astype(np.float32),
+    )
 
 
 def preview_frame_rgba(decoder, timestamp: int,
                        demosaic: str = "bilinear") -> jax.Array:
-    """Decode + fused develop on-device; returns (H, W) uint32 RGBA8888.
-
-    Uses the Pallas develop kernel when the geometry allows (width a
-    lane multiple) and the platform compiles Mosaic; otherwise packs the
-    XLA `develop` output."""
+    """Decode + develop on-device; returns (H, W) uint32 RGBA8888."""
     img, meta = decoder.load_frame_device(timestamp)
     cm = ContainerMetadata(decoder.container_metadata)
     fm = FrameMetadata(meta)
-    return _frame_rgba(
-        img, fm, cm, tuple(cm.cfa_pattern), _on_cpu(), demosaic=demosaic
+    return develop_rgba(
+        img, *map(jnp.asarray, _frame_params(fm, cm)),
+        height=fm.height, width=fm.width, cfa=tuple(cm.cfa_pattern),
+        demosaic=demosaic,
     )
 
 
 def preview_frame(decoder, timestamp: int,
                   demosaic: str = "bilinear") -> jax.Array:
     """Decode + develop one frame fully on-device; returns (H, W, 3) uint8.
-
-    Routes through the fused Pallas kernel when the geometry allows: on
-    TPU it is both ~3.5x faster AND closer to the f64 reference than the
-    XLA pipeline (XLA-on-TPU silently loses ~bf16-level precision inside
-    this large fusion — up to 20/255 — however the ops are expressed; the
-    Pallas kernel holds <= 1 LSB). Prefer preview_frame_rgba for playback
-    (it skips the (H, W, 3) unpack, a layout XLA handles poorly)."""
+    Prefer preview_frame_rgba for playback (one packed plane per frame)."""
     rgba = preview_frame_rgba(decoder, timestamp, demosaic=demosaic)
     return jnp.stack(
         [
@@ -475,22 +432,28 @@ def preview_frame(decoder, timestamp: int,
 def preview_clip(decoder, timestamps=None, batch_frames: int = 8,
                  demosaic: str = "bilinear"):
     """Playback pipeline: yields (timestamp, (H, W) uint32 RGBA8888 device
-    array) for each frame, decoding in batched launches (the v6 batch
-    path) and developing with the fused kernel (XLA fallback for
-    non-lane-aligned widths). The whole chain stays on device; a display
-    loop reads back or blits each RGBA plane."""
+    array) for each frame, decoding in batched launches and developing
+    each batch in one vmapped program. The whole chain stays on device; a
+    display loop reads back or blits each RGBA plane."""
     if timestamps is None:
         timestamps = decoder.frames
     cm = ContainerMetadata(decoder.container_metadata)
     cfa = tuple(cm.cfa_pattern)
-    interp = _on_cpu()
     i = 0
     for imgs, metas in decoder.decode_batch_iter(
         timestamps, chunk_frames=batch_frames
     ):
-        for k in range(imgs.shape[0]):
-            fm = FrameMetadata(metas[k])
-            yield timestamps[i], _frame_rgba(
-                imgs[k], fm, cm, cfa, interp, demosaic=demosaic
-            )
+        fms = [FrameMetadata(m) for m in metas]
+        params = [_frame_params(fm, cm) for fm in fms]
+        rgba = develop_rgba_batch(
+            imgs,
+            jnp.asarray(params[0][0]),
+            jnp.asarray(params[0][1]),
+            jnp.asarray(np.stack([p[2] for p in params])),
+            jnp.asarray(np.stack([p[3] for p in params])),
+            height=fms[0].height, width=fms[0].width, cfa=cfa,
+            demosaic=demosaic,
+        )
+        for k in range(len(fms)):
+            yield timestamps[i], rgba[k]
             i += 1

@@ -1,6 +1,6 @@
-// Native host runtime for the mcraw TPU framework.
+// Native host runtime for the mcraw decoder.
 //
-// TPU-native equivalent of the reference's C++ hot host paths: the two
+// Equivalent of the reference's C++ hot host paths: the two
 // format-imposed *serial* scans that cannot vectorize (SURVEY.md §7):
 //
 //   1. mcraw_metadata_scan — the modern codec's inline-header metadata
@@ -11,7 +11,7 @@
 //      block N-1's bits nibble.
 //
 // Both emit flat arrays (values / bits / refs / offsets) that the JAX device
-// kernels consume; all parallel unpacking happens on TPU. Clean-room
+// decode consumes; all parallel unpacking happens on the device. Clean-room
 // implementations of the format spec in SURVEY.md §2.4 — no reference code
 // is copied.
 //
@@ -144,57 +144,6 @@ int64_t mcraw_metadata_scan(const uint8_t* data, int64_t len, int64_t offset,
     offset += blen;
   }
   return offset;
-}
-
-// Sum main-data payload lengths from decoded modern `bits` values, with
-// per-segment sums at a regular `stride` (the v5 kernel's subgroup size).
-// Replaces a NumPy LUT-gather + reduceat pass (~0.8 ms/4K frame) with one
-// memory-speed walk. bits > 16 clamp to 16 (RawData.cpp:424-458 default
-// case). Writes ceil(n/stride) segment sums; returns the total.
-int64_t mcraw_length_segments(const uint16_t* bits, int64_t n, int64_t stride,
-                              int64_t* seg_out) {
-  int64_t total = 0;
-  const int64_t nseg = stride > 0 ? (n + stride - 1) / stride : 0;
-  for (int64_t s = 0; s < nseg; ++s) {
-    int64_t end = (s + 1) * stride;
-    if (end > n) end = n;
-    int64_t acc = 0;
-    for (int64_t i = s * stride; i < end; ++i) {
-      int b = bits[i];
-      if (b > 16) b = 16;
-      acc += kModernBlockLength[b];
-    }
-    seg_out[s] = acc;
-    total += acc;
-  }
-  return total;
-}
-
-// Same walk, but also reports which clamped bits values occur as a 17-bit
-// presence mask (bit b set <=> some block encodes at b bits). The caller
-// derives the v5 kernel's static field-pass count from the mask without a
-// second NumPy pass over the bits stream.
-int64_t mcraw_length_segments2(const uint16_t* bits, int64_t n,
-                               int64_t stride, int64_t* seg_out,
-                               uint32_t* mask_out) {
-  int64_t total = 0;
-  uint32_t mask = 0;
-  const int64_t nseg = stride > 0 ? (n + stride - 1) / stride : 0;
-  for (int64_t s = 0; s < nseg; ++s) {
-    int64_t end = (s + 1) * stride;
-    if (end > n) end = n;
-    int64_t acc = 0;
-    for (int64_t i = s * stride; i < end; ++i) {
-      int b = bits[i];
-      if (b > 16) b = 16;
-      mask |= 1u << b;
-      acc += kModernBlockLength[b];
-    }
-    seg_out[s] = acc;
-    total += acc;
-  }
-  if (mask_out) *mask_out = mask;
-  return total;
 }
 
 // Walk the legacy inline-header chain for `num_blocks` blocks starting at

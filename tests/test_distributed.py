@@ -2,7 +2,7 @@
 processes join a jax.distributed coordinator, form a global 2x4-device CPU
 mesh, decode a shared synthetic clip on it, reduce across hosts, and export
 disjoint DNG shards (the standard JAX multi-process recipe — the identical
-code path drives TPU pods over DCN)."""
+code path drives multi-host GPU clusters)."""
 
 import os
 import socket

@@ -75,10 +75,10 @@ def test_metadata_stream_count_bomb(rng):
 
 
 def test_light_prep_fuzz_never_crashes(rng):
-    """The v6 host prep (serial scans + validation only) must reject or
-    survive arbitrary corruption without crashing — it guards the device
-    program's assumptions (offsets in-bounds, counts sane)."""
-    from mcraw.kernels import pallas_unpack as PK
+    """The device decode's host prep (serial scans + validation) must
+    reject or survive arbitrary corruption without crashing — it guards
+    the device program's assumptions (offsets in-bounds, counts sane)."""
+    from mcraw.kernels import unpack as U
 
     img = rng.integers(0, 4096, size=(16, 128), dtype=np.uint16)
     payload = np.frombuffer(E.encode_modern(img), dtype=np.uint8)
@@ -95,6 +95,8 @@ def test_light_prep_fuzz_never_crashes(rng):
                 np.uint8
             )
         try:
-            PK.prepare_modern_light(bad, 128, 16)
+            plan = U.prepare_modern(bad, 128, 16)
+            n = len(plan.payload)
+            assert np.all(plan.offsets + 128 <= n)  # windows in bounds
         except MotionCamException:
             pass  # rejection is the expected outcome

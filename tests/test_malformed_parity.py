@@ -210,15 +210,13 @@ def test_nonmultiple64_stream_count_decodes(rng):
 
 
 def test_noncanonical_payloads_through_pallas_kernels(rng):
-    """Mutated (noncanonical) payloads through BOTH fused Pallas paths
-    (interpret): refs below min / wraparound refs / over-wide bits
-    nibbles 12-15 / stream gaps / junk stream tails. The mutation soak
-    (tools/soak_mutation.py) covers ref-shim/oracle/XLA; this pins the
-    Pallas kernels on the same distribution."""
-    import jax.numpy as jnp
-
-    from mcraw.kernels import pallas_legacy as PL
-    from mcraw.kernels import pallas_unpack as PK
+    """Mutated (noncanonical) payloads through BOTH device decodes (the
+    plain-XLA programs that replaced the fused kernels): refs below min /
+    wraparound refs / over-wide bits nibbles 12-15 / stream gaps / junk
+    stream tails. The mutation soak (tools/soak_mutation.py) covers
+    ref-shim/oracle; this pins the device decode on the same
+    distribution."""
+    from mcraw.kernels import unpack as U
     from tools.soak_mutation import make_coder
 
     h, w = 16, 192
@@ -235,17 +233,7 @@ def test_noncanonical_payloads_through_pallas_kernels(rng):
         ),
         dtype=np.uint8,
     )
-    out = np.asarray(PK.decode_modern_pallas(payload, w, h, interpret=True))
-    assert np.array_equal(out, img)
-    p32, bits, refs, ty, tx, (rows, sub_rows, nf) = PK.prepare_modern_light(
-        payload, w, h
-    )
-    out6 = PK.decode_modern_device_v6.__wrapped__(
-        jnp.asarray(p32), jnp.asarray(bits), jnp.asarray(refs),
-        ty=ty, tx=tx, height=h, width=w, rows=rows, sub_rows=sub_rows,
-        nfields=nf, interpret=True,
-    )
-    assert np.array_equal(np.asarray(out6), img)
+    assert np.array_equal(np.asarray(U.decode_modern(payload, w, h)), img)
 
     lpay = np.frombuffer(
         E.encode_legacy(
@@ -254,12 +242,4 @@ def test_noncanonical_payloads_through_pallas_kernels(rng):
         ),
         dtype=np.uint8,
     )
-    out5 = np.asarray(PL.decode_legacy_pallas_v5(lpay, w, h, interpret=True))
-    assert np.array_equal(out5, img)
-    lp32, offs, lbits, lrefs, pw, lrows = PL.prepare_legacy_light(lpay, w, h)
-    lout6 = PL.decode_legacy_device_v6.__wrapped__(
-        jnp.asarray(lp32), jnp.asarray(offs), jnp.asarray(lbits),
-        jnp.asarray(np.asarray(lrefs, np.int32)),
-        pw=pw, h=h, width=w, rows=lrows, interpret=True,
-    )
-    assert np.array_equal(np.asarray(lout6), img)
+    assert np.array_equal(np.asarray(U.decode_legacy(lpay, w, h)), img)

@@ -70,45 +70,3 @@ def test_legacy_scan_truncated(native_lib, rng):
     num_blocks = 8 * (64 // 32) * 2
     with pytest.raises(DecodeError):
         N.legacy_scan(data[: len(data) // 2], num_blocks)
-
-
-def test_length_segments_matches_numpy(rng):
-    """Native lengths/segment sums == the NumPy LUT + reduceat fallback."""
-    from mcraw.kernels import native as N
-    from mcraw.kernels import tables as T
-
-    r = N.length_segments(
-        rng.integers(0, 24, 5000).astype(np.uint16), 384
-    )
-    if r is None:
-        pytest.skip("native extension unavailable")
-    bits = rng.integers(0, 24, 5000).astype(np.uint16)
-    for stride in (1, 64, 384, 5000, 7000):
-        total, seg = N.length_segments(bits, stride)
-        lengths = T.MODERN_BLOCK_LENGTH.take(bits, mode="clip")
-        assert total == int(lengths.sum())
-        want = np.add.reduceat(lengths, np.arange(0, len(bits), stride))
-        assert np.array_equal(seg, want), stride
-
-
-def test_length_segments2_mask(rng):
-    """length_segments2: same totals/segments as length_segments, plus a
-    clamped-bits presence mask that reproduces v5_required_fields."""
-    from mcraw.kernels import native as N
-    from mcraw.kernels import pallas_unpack as PK
-
-    if N.length_segments2(np.zeros(1, np.uint16), 64) is None:
-        pytest.skip("native extension unavailable")
-    bits = rng.integers(0, 24, 5000).astype(np.uint16)
-    for stride in (64, 384, 5000):
-        t1, s1 = N.length_segments(bits, stride)
-        t2, s2, mask = N.length_segments2(bits, stride)
-        assert (t1, list(s1)) == (t2, list(s2))
-        assert PK.v5_required_fields_mask(mask) == PK.v5_required_fields(
-            bits
-        )
-    # single-value streams pin the mask/NF table agreement per bits value
-    for b in range(20):
-        one = np.array([b], dtype=np.uint16)
-        _, _, mask = N.length_segments2(one, 8)
-        assert PK.v5_required_fields_mask(mask) == PK.v5_required_fields(one)

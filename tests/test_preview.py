@@ -72,52 +72,50 @@ def test_cfa_patterns_consistent():
         assert np.max(np.abs(outs[0] - other)) <= 1
 
 
+_BLACK = np.array([16, 20, 24, 28], np.float32)
+_NEUTRAL = np.array([0.55, 1.0, 0.71], np.float32)
+_FWD = np.array(
+    [0.6, 0.2, 0.16, 0.25, 0.7, 0.05, 0.02, 0.18, 0.62], np.float32
+).reshape(3, 3)
+
+
+def _rgb_of(rgba):
+    rgba = np.asarray(rgba)
+    return np.stack(
+        [rgba & 0xFF, (rgba >> 8) & 0xFF, (rgba >> 16) & 0xFF], axis=-1
+    ).astype(np.int64)
+
+
 def test_fused_rgba_matches_xla_develop():
-    """Pallas fused develop (RGBA32) == XLA develop to <= 1 LSB."""
+    """develop_rgba == develop packed to RGBA8888 (alpha 255), and both
+    sit within 1 LSB of the f64 model."""
     import jax.numpy as jnp
     from mcraw import preview as P
 
     rng = np.random.default_rng(5)
     h, w = 24, 256
     raw = rng.integers(0, 1024, size=(h, w), dtype=np.uint16)
-    black = np.array([16, 20, 24, 28], np.float32)
     white = np.float32(1023.0)
-    neutral = np.array([0.55, 1.0, 0.71], np.float32)
-    fwd = np.array(
-        [0.6, 0.2, 0.16, 0.25, 0.7, 0.05, 0.02, 0.18, 0.62], np.float32
-    ).reshape(3, 3)
     cfa = (0, 1, 1, 2)
-
-    rgb = np.asarray(
-        P.develop(
-            jnp.asarray(raw), jnp.asarray(black), jnp.asarray(white),
-            jnp.asarray(neutral), jnp.asarray(fwd),
-            P._inv_dens_device(h, w, cfa),
-            height=h, width=w, cfa=cfa,
-        )
-    )
-    rgba = np.asarray(
-        P.develop_rgba(
-            jnp.asarray(raw), black, white, neutral, fwd,
-            height=h, width=w, cfa=cfa, interpret=True,
-        )
-    )
-    got = np.stack(
-        [rgba & 0xFF, (rgba >> 8) & 0xFF, (rgba >> 16) & 0xFF], axis=-1
-    ).astype(np.int64)
+    args = (jnp.asarray(raw), _BLACK, white, _NEUTRAL, _FWD)
+    rgb = np.asarray(P.develop(*args, height=h, width=w, cfa=cfa))
+    rgba = np.asarray(P.develop_rgba(*args, height=h, width=w, cfa=cfa))
     assert np.all((rgba >> 24) == 0xFF)
-    assert np.max(np.abs(got - rgb.astype(np.int64))) <= 1
+    assert np.array_equal(_rgb_of(rgba), rgb.astype(np.int64))
+    want = P.develop_f64(raw, _BLACK, white, _NEUTRAL, _FWD, cfa)
+    assert np.max(np.abs(rgb.astype(np.int64) - want)) <= 1
 
 
 @pytest.mark.parametrize("sensor", ["rggb", "bggr", "grbg", "gbrg"])
 def test_fused_rgba_all_cfas(sensor):
-    """Fused develop handles every CFA (interpret) == XLA develop."""
+    """The develop handles every CFA within 1 LSB of the f64 model (odd
+    height exercises the bottom border)."""
     import jax.numpy as jnp
     from mcraw import preview as P
     from mcraw.metadata import CFA_PATTERNS
 
     rng = np.random.default_rng(9)
-    h, w = 30, 128  # odd-band height exercises the pad/crop path
+    h, w = 30, 128
     raw = rng.integers(0, 4096, size=(h, w), dtype=np.uint16)
     black = np.array([8, 10, 12, 14], np.float32)
     white = np.float32(4095.0)
@@ -126,103 +124,41 @@ def test_fused_rgba_all_cfas(sensor):
         [0.7, 0.15, 0.11, 0.2, 0.75, 0.05, 0.03, 0.12, 0.67], np.float32
     ).reshape(3, 3)
     cfa = tuple(CFA_PATTERNS[sensor])
-
-    rgb = np.asarray(
-        P.develop(
-            jnp.asarray(raw), jnp.asarray(black), jnp.asarray(white),
-            jnp.asarray(neutral), jnp.asarray(fwd),
-            P._inv_dens_device(h, w, cfa),
-            height=h, width=w, cfa=cfa,
-        )
-    ).astype(np.int64)
-    rgba = np.asarray(
-        P.develop_rgba(
-            jnp.asarray(raw), black, white, neutral, fwd,
-            height=h, width=w, cfa=cfa, interpret=True,
-        )
+    rgba = P.develop_rgba(
+        jnp.asarray(raw), black, white, neutral, fwd,
+        height=h, width=w, cfa=cfa,
     )
-    got = np.stack(
-        [rgba & 0xFF, (rgba >> 8) & 0xFF, (rgba >> 16) & 0xFF], axis=-1
-    ).astype(np.int64)
-    assert np.max(np.abs(got - rgb)) <= 1, sensor
+    want = P.develop_f64(raw, black, white, neutral, fwd, cfa)
+    assert np.max(np.abs(_rgb_of(rgba) - want)) <= 1, sensor
 
 
 @pytest.mark.parametrize(
     "shape,sensor",
     [
         ((24, 256), "rggb"),
-        ((30, 100), "bggr"),  # odd band + non-lane width: pad cols in play
-        ((66, 128), "grbg"),  # multi-band: interior band borders
+        ((30, 100), "bggr"),  # odd height + ragged width
+        ((66, 128), "grbg"),
     ],
 )
 def test_develop_inkernel_normalizer_bitwise_equals_table(shape, sensor):
-    """inv_mode=compute (in-kernel 1/conv(mask)) must be BITWISE equal to
-    the streamed-table path, not just <= 1 LSB: the conv over the 0/1 mask
-    sums small exact integers, so 1.0/den rounds identically to the numpy
-    table (pallas_develop.py docstring exactness argument). Any drift
-    means the mask border predicate is wrong."""
-    import jax.numpy as jnp
+    """The closed-form in-graph normalizer must be BITWISE equal to the
+    conv(mask) table it replaced, not just <= 1 LSB: the conv over the 0/1
+    mask sums small exact integers, so 1/den rounds identically. Any
+    drift means the border or parity predicate is wrong."""
     from mcraw import preview as P
     from mcraw.metadata import CFA_PATTERNS
 
-    rng = np.random.default_rng(11)
     h, w = shape
-    raw = rng.integers(0, 1 << 12, size=(h, w), dtype=np.uint16)
-    black = np.array([16, 20, 24, 28], np.float32)
-    white = np.float32(4095.0)
-    neutral = np.array([0.55, 1.0, 0.71], np.float32)
-    fwd = np.array(
-        [0.6, 0.2, 0.16, 0.25, 0.7, 0.05, 0.02, 0.18, 0.62], np.float32
-    ).reshape(3, 3)
     cfa = tuple(CFA_PATTERNS[sensor])
-    args = (jnp.asarray(raw), black, white, neutral, fwd)
-    kw = dict(height=h, width=w, cfa=cfa, interpret=True)
-    got = np.asarray(P.develop_rgba(*args, use_table=False, **kw))
-    want = np.asarray(P.develop_rgba(*args, use_table=True, **kw))
-    assert np.array_equal(got, want)
-
-
-def test_develop_gamma_poly_within_one_lsb():
-    """gamma_mode="poly" (minimax t^(5/3) in fourth-root space) must stay
-    within 1 u8 LSB of the exact exp/log transfer curve per channel — the
-    same fidelity contract the pipeline pins vs the f64 model. Content
-    sweeps the full dynamic range so the curve's knee and both branch
-    sides are exercised."""
-    import jax.numpy as jnp
-    from mcraw.kernels import pallas_develop as PD
-
-    rng = np.random.default_rng(13)
-    h, w = 64, 256
-    raw = rng.integers(0, 1 << 12, size=(h, w), dtype=np.uint16)
-    raw[:8] = 0
-    raw[8:16] = 4095  # saturate
-    params = jnp.asarray(
-        PD.pack_develop_params(
-            np.array([16, 20, 24, 28], np.float32), 4095.0,
-            np.array([0.55, 1.0, 0.71], np.float32),
-            np.array(
-                [0.6, 0.2, 0.16, 0.25, 0.7, 0.05, 0.02, 0.18, 0.62],
-                np.float32,
-            ).reshape(3, 3),
-        )
-    )
-    kw = dict(height=h, width=w, cfa=(0, 1, 1, 2), interpret=True)
-    exact = np.asarray(
-        PD.develop_rgba_pallas(jnp.asarray(raw), params, None, **kw)
-    )
-    poly = np.asarray(
-        PD.develop_rgba_pallas(
-            jnp.asarray(raw), params, None, gamma_mode="poly", **kw
-        )
-    )
-    for sh in (0, 8, 16):
-        a = ((exact >> sh) & 0xFF).astype(np.int64)
-        b = ((poly >> sh) & 0xFF).astype(np.int64)
-        assert np.max(np.abs(a - b)) <= 1
+    masks = P._phase_masks(h, w, cfa)
+    for c, k in ((0, P._K_FULL), (1, P._K_CROSS), (2, P._K_FULL)):
+        table = (1.0 / P._np_conv2same(masks[c], k)).astype(np.float32)
+        got = 1.0 / np.asarray(P._mask_normalizer(h, w, cfa, c, k))
+        assert np.array_equal(got, table), c
 
 
 def test_preview_frame_rgba_end_to_end():
-    """Decoder -> preview_frame_rgba pipeline (interpret on CPU)."""
+    """Decoder -> preview_frame_rgba pipeline."""
     blob = _clip_with_flat_color(512, 512, 512)
     d = Decoder(blob, backend="jax")
     from mcraw.preview import preview_frame_rgba
@@ -238,7 +174,7 @@ def test_preview_frame_rgba_end_to_end():
 
 
 def test_preview_clip_playback():
-    """Batched decode + fused develop playback iterator."""
+    """Batched decode + batched develop playback iterator."""
     from mcraw import encode as E2
     from mcraw.metadata import example_frame_metadata
     from mcraw.preview import preview_clip
@@ -267,45 +203,26 @@ def test_preview_clip_playback():
 
 @pytest.mark.parametrize("shape", [(24, 4032), (24, 200), (16, 132)])
 def test_fused_rgba_unaligned_widths(shape):
-    """Fused develop at non-128-multiple widths (4032 = the dominant
-    phone full-res width) == XLA develop to <= 1 LSB: the kernel
-    lane-pads internally; padded columns contribute zero exactly like
-    the XLA zero-pad convention."""
+    """Develop at non-128-multiple widths (4032 = the dominant phone
+    full-res width) stays within 1 LSB of the f64 model."""
     import jax.numpy as jnp
     from mcraw import preview as P
 
     h, w = shape
     rng = np.random.default_rng(11)
     raw = rng.integers(0, 1024, size=(h, w), dtype=np.uint16)
-    black = np.array([16, 20, 24, 28], np.float32)
     white = np.float32(1023.0)
-    neutral = np.array([0.55, 1.0, 0.71], np.float32)
-    fwd = np.array(
-        [0.6, 0.2, 0.16, 0.25, 0.7, 0.05, 0.02, 0.18, 0.62], np.float32
-    ).reshape(3, 3)
     cfa = (0, 1, 1, 2)
-
-    rgb = np.asarray(
-        P.develop(
-            jnp.asarray(raw), jnp.asarray(black), jnp.asarray(white),
-            jnp.asarray(neutral), jnp.asarray(fwd),
-            P._inv_dens_device(h, w, cfa),
+    rgba = np.asarray(
+        P.develop_rgba(
+            jnp.asarray(raw), _BLACK, white, _NEUTRAL, _FWD,
             height=h, width=w, cfa=cfa,
         )
     )
-    rgba = np.asarray(
-        P.develop_rgba(
-            jnp.asarray(raw), black, white, neutral, fwd,
-            height=h, width=w, cfa=cfa, interpret=True,
-        )
-    )
     assert rgba.shape == (h, w)
-    got = np.stack(
-        [rgba & 0xFF, (rgba >> 8) & 0xFF, (rgba >> 16) & 0xFF], axis=-1
-    ).astype(np.int64)
     assert np.all((rgba >> 24) == 0xFF)
-    assert np.max(np.abs(got - rgb.astype(np.int64))) <= 1
-    assert P._fused_eligible(h, w)
+    want = P.develop_f64(raw, _BLACK, white, _NEUTRAL, _FWD, cfa)
+    assert np.max(np.abs(_rgb_of(rgba) - want)) <= 1
 
 
 # ---------------------------------------------------------------------------
@@ -380,10 +297,10 @@ def _develop_f64(raw, black, white, neutral, fwd, cfa):
 
 
 def test_preview_fidelity_bound_vs_f64_model():
-    """The fused Pallas develop kernel, fed the dual-illuminant
-    interpolated forward matrix, stays within 1/255 per channel of the
-    full-precision f64 scalar model on realistic metadata — the
-    documented preview fidelity guarantee."""
+    """The device develop, fed the dual-illuminant interpolated forward
+    matrix, stays within 1/255 per channel of the full-precision f64
+    scalar model on realistic metadata — the documented preview fidelity
+    guarantee."""
     from mcraw import preview as P
     from mcraw.color import interpolated_matrices
 
@@ -406,7 +323,7 @@ def test_preview_fidelity_bound_vs_f64_model():
 
     rgba = np.asarray(P.develop_rgba(
         jnp.asarray(raw), black, white, neutral, fwd.astype(np.float32),
-        height=h, width=w, cfa=cfa, interpret=True,
+        height=h, width=w, cfa=cfa,
     ))
     got = np.stack(
         [rgba & 0xFF, (rgba >> 8) & 0xFF, (rgba >> 16) & 0xFF], axis=-1
@@ -434,7 +351,7 @@ def test_preview_frame_uses_interpolated_matrix(rng):
     n_a = _CM2 @ _xyz_of_xy((0.4476, 0.4074))
     fmeta["asShotNeutral"] = (n_a / n_a[1]).tolist()
     writer.add_frame(1, E.encode_modern(img), fmeta)
-    d = Decoder(writer.finish(), backend="jax", kernel="pallas")
+    d = Decoder(writer.finish(), backend="jax")
 
     got = np.asarray(preview_frame(d, 1)).astype(np.int64)
     cm = ContainerMetadata(d.container_metadata)
@@ -456,14 +373,12 @@ def test_preview_frame_uses_interpolated_matrix(rng):
 )
 def test_malvar_kernel_matches_f64_model(shape, sensor):
     """Malvar-He-Cutler demosaic (r5 beyond-reference feature): the
-    fused kernel's malvar path vs the f64 scalar model, <= 1 LSB across
-    CFAs, ragged widths, and band borders (band_rows=16 puts interior
-    band seams inside the 5x5 halo)."""
+    float32 develop's malvar path vs the f64 scalar model, <= 1 LSB
+    across CFAs, ragged widths, and the zero-padded 2px border."""
     import jax.numpy as jnp
 
-    from mcraw.kernels import pallas_develop as PD
+    from mcraw import preview as P
     from mcraw.metadata import CFA_PATTERNS
-    from mcraw.preview import develop_f64
 
     h, w = shape
     cfa = tuple(CFA_PATTERNS[sensor])
@@ -476,22 +391,16 @@ def test_malvar_kernel_matches_f64_model(shape, sensor):
         [[0.86, 0.08, 0.02], [0.04, 0.91, 0.05], [0.01, 0.06, 0.76]],
         np.float32,
     )
-    params = jnp.asarray(
-        PD.pack_develop_params(black, white, neutral, fwd)
-    )
     rgba = np.asarray(
-        PD.develop_rgba_pallas(
-            jnp.asarray(raw), params, None, height=h, width=w, cfa=cfa,
-            demosaic="malvar", band_rows=16, interpret=True,
+        P.develop_rgba(
+            jnp.asarray(raw), black, np.float32(white), neutral, fwd,
+            height=h, width=w, cfa=cfa, demosaic="malvar",
         )
     ).astype(np.int64)
-    model = develop_f64(
+    model = P.develop_f64(
         raw, black, white, neutral, fwd, cfa, demosaic="malvar"
     )
-    got = np.stack(
-        [rgba & 0xFF, (rgba >> 8) & 0xFF, (rgba >> 16) & 0xFF], -1
-    )
-    assert int(np.abs(got - model).max()) <= 1
+    assert int(np.abs(_rgb_of(rgba) - model).max()) <= 1
     assert int(((rgba >> 24) & 0xFF).min()) == 255
 
 
@@ -600,39 +509,97 @@ def test_preview_cli_demosaic_flag(tmp_path, rng, capsys, monkeypatch):
     ],
 )
 def test_develop_batch_exact(shape, demosaic):
-    """The official preview bench dispatches frames in PAIRS through one
-    BATCHED develop pallas call (bench.py bench_preview_tpu: 2 develop
-    custom-calls per program, 4 frames per dispatch — the remote-compile
-    helper crashes at >= 4 inline develop calls; jax.vmap can't lift the
-    kernel's ANY-space operands, so the batch is a native frame-major
-    band grid). (B, H, W) in must be bit-exact vs per-frame calls for
-    both demosaic modes; on hardware the bench re-gates this per pair
-    against oracle-gated single-frame checksums, and hw_parity's
-    dev_batch flag case covers it against interpret goldens."""
+    """The vmapped batch develop (preview_clip's path) must be bit-exact
+    vs per-frame calls for both demosaic modes, with per-frame neutrals
+    and forward matrices."""
     import jax.numpy as jnp
-    from mcraw.kernels import pallas_develop as PD
+    from mcraw import preview as P
 
     h, w = shape
     rng = np.random.default_rng(7)
     ims = rng.integers(0, 4096, size=(2, h, w), dtype=np.uint16)
-    params = jnp.asarray(
-        PD.pack_develop_params(
-            np.zeros(4, np.float32), 4095.0, np.ones(3, np.float32),
-            np.diag([0.9642, 1.0, 0.8249]).astype(np.float32),
-        )
+    black = np.zeros(4, np.float32)
+    white = np.float32(4095.0)
+    neutrals = np.array([[1.0, 1.0, 1.0], [0.55, 1.0, 0.71]], np.float32)
+    fwds = np.stack(
+        [np.diag([0.9642, 1.0, 0.8249]).astype(np.float32), _FWD]
     )
-    kw = dict(height=h, width=w, cfa=(0, 1, 1, 2), demosaic=demosaic,
-              interpret=True)
+    kw = dict(height=h, width=w, cfa=(0, 1, 1, 2), demosaic=demosaic)
     singles = np.stack([
         np.asarray(
-            PD.develop_rgba_pallas.__wrapped__(jnp.asarray(im), params,
-                                               None, **kw)
+            P.develop_rgba(jnp.asarray(ims[i]), black, white, neutrals[i],
+                           fwds[i], **kw)
         )
-        for im in ims
+        for i in range(2)
     ])
     batched = np.asarray(
-        PD.develop_rgba_pallas.__wrapped__(jnp.asarray(ims), params,
-                                           None, **kw)
+        P.develop_rgba_batch(jnp.asarray(ims), black, white, neutrals,
+                             fwds, **kw)
     )
     assert batched.shape == (2, h, w)
     assert np.array_equal(batched, singles)
+
+
+def test_color_matrix_full_precision():
+    """The develop's one matrix product keeps float32 precision (it asks
+    for HIGHEST, so a GPU cannot drop it to TF32): relative error vs the
+    float64 product stays at float32 rounding, far below TF32's ~1e-3."""
+    import jax.numpy as jnp
+    from mcraw import preview as P
+
+    fwd = np.array(
+        [[0.62, 0.22, 0.12], [0.26, 0.72, 0.02], [0.03, 0.12, 0.67]]
+    )
+    want = P._XYZ_D50_TO_SRGB.astype(np.float64) @ fwd
+    got = np.asarray(P.color_matrix(jnp.asarray(fwd, jnp.float32)))
+    assert np.max(np.abs(got - want)) <= 1e-5 * np.max(np.abs(want))
+
+
+@pytest.mark.parametrize("h", [2, 3])
+@pytest.mark.parametrize("demosaic", ["bilinear", "malvar"])
+def test_develop_tiny_heights(h, demosaic):
+    """Frames of 2 and 3 rows (once a fallback case: every row is a
+    border row) develop on the one path, within 1 LSB of the f64 model."""
+    import jax.numpy as jnp
+    from mcraw import preview as P
+
+    w = 64
+    raw = np.random.default_rng(h).integers(0, 4096, size=(h, w),
+                                            dtype=np.uint16)
+    white = np.float32(4095.0)
+    rgba = P.develop_rgba(
+        jnp.asarray(raw), _BLACK, white, _NEUTRAL, _FWD,
+        height=h, width=w, cfa=(0, 1, 1, 2), demosaic=demosaic,
+    )
+    want = P.develop_f64(raw, _BLACK, white, _NEUTRAL, _FWD, (0, 1, 1, 2),
+                         demosaic=demosaic)
+    assert want.min() >= 0 and want.max() <= 255
+    assert np.max(np.abs(_rgb_of(rgba) - want)) <= 1
+
+
+def test_preview_clip_mixed_geometry():
+    """preview_clip over a clip that switches resolution: each homogeneous
+    run develops in its own batch, frames stay in stream order."""
+    from mcraw import preview as P
+    from mcraw.metadata import ContainerMetadata, FrameMetadata
+
+    cm = example_container_metadata()
+    writer = E.ContainerWriter(cm)
+    rng = np.random.default_rng(4)
+    imgs = []
+    for t, (h, w) in enumerate([(16, 128), (16, 128), (8, 64)]):
+        img = rng.integers(0, 1024, size=(h, w), dtype=np.uint16)
+        imgs.append(img)
+        writer.add_frame(t + 1, E.encode_modern(img),
+                         example_frame_metadata(w, h))
+    d = Decoder(writer.finish(), backend="jax")
+    cmeta = ContainerMetadata(d.container_metadata)
+    frames = list(P.preview_clip(d, batch_frames=4))
+    assert [t for t, _ in frames] == [1, 2, 3]
+    for (ts, rgba), img in zip(frames, imgs):
+        fm = FrameMetadata(d._reader.frame_payload(ts)[1])
+        black, white, neutral, fwd = P._frame_params(fm, cmeta)
+        want = P.develop_f64(img, black, white, neutral, fwd,
+                             tuple(cmeta.cfa_pattern))
+        assert np.asarray(rgba).shape == img.shape
+        assert np.max(np.abs(_rgb_of(rgba) - want)) <= 1

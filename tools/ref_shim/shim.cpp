@@ -1,5 +1,5 @@
 // C ABI shim over the reference decoder (/root/reference), used ONLY by the
-// differential test suite to validate the TPU framework's codecs and
+// differential test suite to validate the framework's codecs and
 // container parser bit-exactly against the original implementation.
 // Compiled out-of-tree against the read-only reference sources; none of the
 // reference code is vendored into this repository.
